@@ -70,15 +70,19 @@ class HumanPoseEstimator:
         self.joint_matrix = torch.from_numpy(joint_matrix(
             config.skeleton, config.expand_joints_path, config.skeletons_path)).to(self.device)
 
-    def _detect(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None):
+    def _detect(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None,
+                stages: Optional[dict] = None):
         """frames (B, H, W, 3) -> clamped pixel boxes (x1, y1, x2, y2) int32,
-        conf (B,), found (B,). yolo_in: optional (B, 1, S, S, 3) RGB/255."""
+        conf (B,), found (B,). yolo_in: optional (B, 1, S, S, 3) RGB/255.
+        stages: a dict that, when given, receives the intermediate tensors."""
         cfg = self.config
         h, w = frames.shape[1], frames.shape[2]
         if yolo_in is None:
             yolo_in = yolo_preprocess(frames, cfg.yolo_input_size)
         boxes, confs = nets["yolo"](yolo_in[:, 0].permute(0, 3, 1, 2))
         box, conf, found = best_person_box(boxes, confs, cfg.yolo_thresh)
+        if stages is not None:
+            stages.update(yolo_in=yolo_in, yolo_boxes=boxes, yolo_confs=confs)
         zero = torch.zeros((), dtype=torch.int32, device=box.device)
         x1 = torch.maximum(to_int32(box[:, 0] * w), zero)
         y1 = torch.maximum(to_int32(box[:, 1] * h), zero)
@@ -88,11 +92,14 @@ class HumanPoseEstimator:
         y2 = torch.maximum(y2, y1 + 1)
         return (x1, y1, x2, y2), conf, found
 
-    def _estimate_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None):
+    def _estimate_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None,
+                       stages: Optional[dict] = None):
         """frames (B, H, W, 3) BGR -> pose (B, J, 3), bbox (B, 4) int32 in
-        (x1, x2, y1, y2) order, conf (B,), found (B,), visible (B,)."""
+        (x1, x2, y1, y2) order, conf (B,), found (B,), visible (B,).
+        stages: a dict that, when given, receives the intermediate tensors
+        in the order the step computes them (``stage_trace.py`` reads it)."""
         cfg = self.config
-        (x1, y1, x2, y2), conf, found = self._detect(nets, frames, yolo_in)
+        (x1, y1, x2, y2), conf, found = self._detect(nets, frames, yolo_in, stages)
         f32 = lambda v: v.to(torch.float32)
         new_k, rot = virtual_camera(f32(x1), f32(x2), f32(y1), f32(y2), self.k_matrix, cfg.crop_size)
         h_mat = warp_matrix(self.k_matrix, new_k, rot)
@@ -100,7 +107,8 @@ class HumanPoseEstimator:
         crop = warp_image(torch.round(frames.to(torch.float32)), h_mat, cfg.crop_size)
         bbone_in = (crop / 255.0).permute(0, 3, 1, 2)
 
-        logits = nets["head"](nets["bbone"](bbone_in))  # (B, 8, 8, 288) NHWC
+        feats = nets["bbone"](bbone_in)
+        logits = nets["head"](feats)  # (B, 8, 8, 288) NHWC
         logits2d, logits3d = split_head_logits(logits)
         pred3d = decode_heatmap3d(logits3d)
         c = cfg.crop_size
@@ -112,4 +120,7 @@ class HumanPoseEstimator:
         pose = torch.einsum("bjc,jn->bnc", pred3d, self.joint_matrix)
         visible = fov.sum(dim=1) >= fov.shape[1] / 4
         bbox = torch.stack([x1, x2, y1, y2], dim=-1)
+        if stages is not None:
+            stages.update(box=bbox, homography=h_mat, crop=crop, trunk=feats, logits=logits,
+                          pred2d=pred2d, abs3d=pred3d, pose=pose)
         return pose, bbox, conf, found, visible

@@ -151,9 +151,11 @@ class Neck(nn.Module):
         return _run(x, self._p3), p4, p5
 
 
-def decode_scale(raw: torch.Tensor, anchors, scale_xy: float, input_size: int, n_classes: int):
+def decode_scale(raw: torch.Tensor, anchors: torch.Tensor, scale_xy: float, input_size: int,
+                 n_classes: int):
     """(b, 3*(5+C), h, w) raw head -> (boxes (b, 3*h*w, 4) in [0,1] x1y1x2y2,
-    confs (b, 3*h*w, C)), flattened in (h, w, anchor) order as in JAX."""
+    confs (b, 3*h*w, C)), flattened in (h, w, anchor) order as in JAX.
+    anchors: (3, 2) float32 pixel sizes on the device of ``raw``."""
     b, _, h, w = raw.shape
     n_anchor = len(anchors)
     raw = raw.to(torch.float32).permute(0, 2, 3, 1).reshape(b, h, w, n_anchor, 5 + n_classes)
@@ -162,7 +164,7 @@ def decode_scale(raw: torch.Tensor, anchors, scale_xy: float, input_size: int, n
     txy = torch.sigmoid(raw[..., 0:2]) * scale_xy - 0.5 * (scale_xy - 1.0)
     bx = (txy[..., 0] + gx[..., None]) / w
     by = (txy[..., 1] + gy[..., None]) / h
-    anchor_wh = torch.tensor(anchors, dtype=torch.float32, device=raw.device) / input_size
+    anchor_wh = anchors / input_size
     bw = torch.exp(raw[..., 2]) * anchor_wh[:, 0]
     bh = torch.exp(raw[..., 3]) * anchor_wh[:, 1]
     boxes = torch.stack([bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2], dim=-1)
@@ -191,6 +193,10 @@ class YOLOv4(nn.Module):
                                                  (c(1024), 3), (c(512), 1)])
         self.head3_conv = ConvBlock(c(512), c(1024), 3, act="leaky")
         self.head3_out = ConvBlock(c(1024), out_ch, 1, act="linear")
+        # a buffer, so that no step copies the anchors from the host (a CUDA
+        # graph cannot record such a copy); not part of the state dict
+        self.register_buffer("anchors", torch.tensor(ANCHORS, dtype=torch.float32),
+                             persistent=False)
 
     def forward(self, x: torch.Tensor):
         input_size = x.shape[2]
@@ -203,7 +209,7 @@ class YOLOv4(nn.Module):
         z2 = _run(torch.cat([self.down5(z), p5], dim=1), self._h5)
         y3 = self.head3_out(self.head3_conv(z2))
         all_boxes, all_confs = [], []
-        for raw, anchors, sxy in zip((y1, y2, y3), ANCHORS, SCALE_XY):
+        for raw, anchors, sxy in zip((y1, y2, y3), self.anchors, SCALE_XY):
             bx, cf = decode_scale(raw, anchors, sxy, input_size, self.n_classes)
             all_boxes.append(bx)
             all_confs.append(cf)

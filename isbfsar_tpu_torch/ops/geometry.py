@@ -1,9 +1,16 @@
 """Camera geometry for the pose pipeline (port of ``isbfsar_tpu/ops/geometry.py``).
 
-The JAX functions pin ``Precision.HIGHEST``; here every product is a
-float32 ``torch.matmul``, which runs in full float32 as long as
-``torch.backends.cuda.matmul.allow_tf32`` stays False (the pipeline's
-constructor pins it). Batched over a leading frame axis.
+The crop gather truncates source coordinates, so a last-ulp change in the
+homography flips whole crop pixels. The products here therefore reproduce,
+bit for bit, what XLA computes for the JAX functions in float32: each dot
+element is a chain of fused multiply-adds over the contraction index in
+order, as are the vector norms, and a cross-product component is
+``fma(a, b, -(c * d))``. A float32 fused multiply-add is emulated in
+float64, where the product of two float32 values is exact, with one
+rounding back to float32. Every op is elementwise, so the result is the
+same on the CPU and on the card and does not depend on the batch size,
+which a cuBLAS or MKL product does not promise. Batched over a leading
+frame axis.
 """
 
 from __future__ import annotations
@@ -11,9 +18,36 @@ from __future__ import annotations
 import torch
 
 
+def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with a single rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Full-precision matmul for small geometric systems."""
-    return torch.matmul(a, b)
+    """(..., m, n) @ (..., n, p) in float32, each element the FMA chain
+    ``fma(a[n-1], b[n-1], ... fma(a[1], b[1], a[0] * b[0]))``."""
+    acc = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        acc = fma(a[..., :, k:k + 1], b[..., k:k + 1, :], acc)
+    return acc
+
+
+def norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm over the last axis, its squares summed as an FMA chain.
+    The square root is taken in float64 and rounded once: PyTorch's float32
+    square root on the CPU is not always correctly rounded."""
+    acc = v[..., 0] * v[..., 0]
+    for k in range(1, v.shape[-1]):
+        acc = fma(v[..., k], v[..., k], acc)
+    out = torch.sqrt(acc.double()).float()
+    return out[..., None] if keepdim else out
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3) x (..., 3), each component ``fma(a_i, b_j, -(a_j * b_i))``."""
+    comps = [fma(a[..., i], b[..., j], -(a[..., j] * b[..., i]))
+             for i, j in ((1, 2), (2, 0), (0, 1))]
+    return torch.stack(comps, dim=-1)
 
 
 def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
@@ -43,13 +77,13 @@ def is_within_fov(imcoords: torch.Tensor, lower: float = 18.0, upper: float = 23
 
 def look_at_rotation(forward: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """(b, 3) look directions -> (b, 3, 3) row-stacked [x; y; z] rotations."""
-    new_z = forward / torch.linalg.norm(forward, dim=-1, keepdim=True)
-    new_x = torch.linalg.cross(new_z, up.expand_as(new_z), dim=-1)
+    new_z = forward / norm(forward, keepdim=True)
+    new_x = cross(new_z, up.expand_as(new_z))
     alt_x = torch.stack([new_z[:, 2], torch.zeros_like(new_z[:, 2]), -new_z[:, 0]], dim=1)
-    degenerate = torch.linalg.norm(new_x, dim=-1, keepdim=True) == 0
+    degenerate = norm(new_x, keepdim=True) == 0
     new_x = torch.where(degenerate, alt_x, new_x)
-    new_x = new_x / torch.linalg.norm(new_x, dim=-1, keepdim=True)
-    new_y = torch.linalg.cross(new_z, new_x, dim=-1)
+    new_x = new_x / norm(new_x, keepdim=True)
+    new_y = cross(new_z, new_x)
     return torch.stack([new_x, new_y, new_z], dim=1)
 
 
@@ -73,13 +107,16 @@ def virtual_camera(x1, x2, y1, y2, intrinsics: torch.Tensor, out_dim: int):
     cam = mm(to_homogeneous(pts), inv_k.t())
     cam = to_homogeneous(cam[..., :2])
 
-    up = torch.tensor([[0.0, -1.0, 0.0]], dtype=torch.float32, device=k.device)
+    # the up vector (0, -1, 0), made on the device: a host copy cannot be
+    # recorded into a CUDA graph
+    up = torch.zeros((1, 3), dtype=torch.float32, device=k.device)
+    up[:, 1] = -1.0
     rot = look_at_rotation(cam[:, 0], up)
 
     side = cam[:, 1:5]
     side_new = project(mm(side, mm(k, rot).transpose(1, 2)))
-    vert = torch.linalg.norm(side_new[:, 0] - side_new[:, 2], dim=-1)
-    horiz = torch.linalg.norm(side_new[:, 1] - side_new[:, 3], dim=-1)
+    vert = norm(side_new[:, 0] - side_new[:, 2])
+    horiz = norm(side_new[:, 1] - side_new[:, 3])
     zoom = out_dim / torch.maximum(vert, horiz)  # (b,)
 
     new_k = torch.zeros((cx.shape[0], 3, 3), dtype=torch.float32, device=k.device)

@@ -1,8 +1,7 @@
 """Absolute 3D pose reconstruction (port of ``isbfsar_tpu/ops/reconstruct.py``).
 
-Weighted least squares for the camera-space reference point, solved with
-an SVD pseudo-inverse at ``np.linalg.lstsq``'s default cutoff, all in
-float32 (``torch.matmul`` is full float32 with TF32 off).
+Weighted least squares for the camera-space reference point with
+``np.linalg.lstsq``'s cutoff, in closed form and all in float32.
 """
 
 from __future__ import annotations
@@ -17,32 +16,62 @@ def _rms_scale(x: torch.Tensor) -> torch.Tensor:
 
 
 def reconstruct_reference_point(normalized_2d, coords3d_rel, validity) -> torch.Tensor:
-    """(b, j, 2), (b, j, 3), (b, j) -> (b, 3) camera-space reference point."""
+    """(b, j, 2), (b, j, 3), (b, j) -> (b, 3) camera-space reference point.
+
+    The JAX function solves the weighted system ``diag(w) [I_2, -u_j] t =
+    diag(w) b_j`` with an SVD pseudo-inverse at ``np.linalg.lstsq``'s cutoff.
+    A CUDA SVD reads its convergence flag on the host, which a CUDA graph
+    cannot hold, so this solves the same system in closed form with
+    elementwise ops and sums over the joints. With weights ``o = w^2`` and
+    weighted means ``u_m``, ``b_m``, the normal matrix has the eigenvalue
+    ``W = sum o`` (direction ``(-u_my, u_mx, 0)``) and the two of
+    ``[[W, -W r], [-W r, C + W r^2]]`` on ``{(u_m / r, 0), e_z}``, where
+    ``r = |u_m|`` and ``C = sum o |u - u_m|^2``. The least-squares point is
+    ``t_z = -sum o (u - u_m).(b - b_m) / C`` and ``t_xy = b_m + u_m t_z``.
+    When the smallest singular value ``sqrt(W C / lambda_max)`` is at or
+    under the cutoff (the 2D decode collapsed onto one point), the
+    solution keeps the other two singular directions only, as the
+    pseudo-inverse does. ``sqrt(W)`` never falls under the cutoff: it is at
+    least ``s_max / sqrt(2j + 1)``.
+    """
     b, j, _ = normalized_2d.shape
     flat2d = normalized_2d.reshape(b, 2 * j)
     scale2d = _rms_scale(flat2d)
-    unit2d = flat2d / scale2d
-
-    eye = torch.eye(2, dtype=normalized_2d.dtype, device=normalized_2d.device).repeat(j, 1)
-    a = torch.cat([eye.expand(b, 2 * j, 2), -unit2d[..., None]], dim=2)
+    u = (flat2d / scale2d).reshape(b, j, 2)
 
     rel_backproj = normalized_2d * coords3d_rel[..., 2:] - coords3d_rel[..., :2]
     flat_b = rel_backproj.reshape(b, 2 * j)
     scale_b = _rms_scale(flat_b)
-    rhs = (flat_b / scale_b)[..., None]
+    rhs = (flat_b / scale_b).reshape(b, j, 2)
 
     w = validity.to(normalized_2d.dtype) + 1e-4
-    w = w.repeat_interleave(2, dim=-1)[..., None]
+    o = (w * w)[..., None]  # (b, j, 1)
+    total = o.sum(dim=1)  # (b, 1): W
+    u_m = (o * u).sum(dim=1) / total  # (b, 2)
+    b_m = (o * rhs).sum(dim=1) / total
+    du, db = u - u_m[:, None], rhs - b_m[:, None]
+    spread = (o[..., 0] * (du * du).sum(dim=-1)).sum(dim=1, keepdim=True)  # (b, 1): C
+    cov = (o[..., 0] * (du * db).sum(dim=-1)).sum(dim=1, keepdim=True)
+    t_z = -cov / spread
+    full = torch.cat([b_m + u_m * t_z, t_z], dim=1)
 
-    aw = a * w
-    bw = rhs * w
-    u, s, vt = torch.linalg.svd(aw, full_matrices=False)
-    eps = torch.finfo(s.dtype).eps
-    cutoff = s[..., :1] * (max(aw.shape[-2:]) * eps)
-    s_inv = torch.where(s > cutoff, 1.0 / torch.clamp(s, min=1e-30), torch.zeros_like(s))
-    utb = torch.einsum("bri,brk->bik", u, bw)
-    x = torch.einsum("bij,bjk->bik", vt.transpose(1, 2), s_inv[..., None] * utb)
-    ref = x[..., 0]
+    r2 = (u_m * u_m).sum(dim=1, keepdim=True)
+    s = spread + total * r2
+    lam_max = (total + s + torch.sqrt((total - s) ** 2 + 4.0 * total * total * r2)) / 2.0
+    lam_min = total * spread / lam_max
+    eps = torch.finfo(normalized_2d.dtype).eps
+    keep = torch.sqrt(lam_min) > torch.sqrt(lam_max) * (max(2 * j, 3) * eps)
+
+    # the pseudo-inverse without the smallest singular direction
+    g_xy = total * b_m  # (b, 2): the x, y rows of A^T diag(o) b
+    g_z = -(o[..., 0] * (u * rhs).sum(dim=-1)).sum(dim=1, keepdim=True)
+    g_par = (g_xy * u_m).sum(dim=1, keepdim=True)
+    e2 = total * total * r2 + (total - lam_max) ** 2
+    c = (total * g_par + (total - lam_max) * g_z) / (torch.clamp(e2, min=1e-30) * lam_max)
+    perp = (g_xy - g_par * u_m / torch.clamp(r2, min=1e-30)) / total
+    trunc = torch.cat([perp + total * u_m * c, (total - lam_max) * c], dim=1)
+
+    ref = torch.where(keep, full, trunc)
     return torch.cat([ref[:, :2], ref[:, 2:] / scale2d], dim=1) * scale_b
 
 

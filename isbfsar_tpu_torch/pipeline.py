@@ -16,9 +16,22 @@ step being a batch of one. The recurrent parts (smoothing and the feature
 ring) run frame by frame inside the batch, as the JAX scans do, so a
 batched step equals the sequence of per-frame steps.
 
-Geometry and reconstruction need full float32 matrix products (the JAX code
-pins ``Precision.HIGHEST``), so the constructor turns TF32 off for matmuls
-and cuDNN convolutions. It is process-wide PyTorch state.
+The reference compiles the step into one program (``jax.jit``). Here, on
+the card, each batch size's step is a CUDA graph: the frames, the
+recurrent state, the support K/V and the support mask live in static
+device buffers; the first step of a batch size runs eagerly (the warm-up,
+which also builds the kernel's tables), then the step is captured, and
+every later step copies its frames in through a pinned host buffer and
+replays the graph, which writes the new state back into the state
+buffers. ``start()`` copies a new support set and a fresh state into the
+same buffers, so the graphs stay valid. ``cuda_graphs=False`` runs every
+step eagerly instead, the oracle the graphs are held against; on the CPU
+there are no graphs, and ``cuda_graphs=True`` runs the static-buffer step
+eagerly.
+
+The convolutions and matmuls must run in full float32 where the JAX code
+does (``Precision.HIGHEST``), so the constructor turns TF32 off for
+matmuls and cuDNN convolutions. It is process-wide PyTorch state.
 """
 
 from __future__ import annotations
@@ -95,6 +108,18 @@ def _cast_trunk_params(nets: Dict[str, torch.nn.Module], dtype: torch.dtype):
     return out
 
 
+def _tensors(tree):
+    """The tensors of a nest of tuples, lists and dicts, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def pin_float32_matmul() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -109,7 +134,12 @@ class FusedPipeline:
         with_focus: bool = False,
         input_format: str = "i420",
         device: str = "cuda",
+        cuda_graphs: Optional[bool] = None,
     ):
+        """cuda_graphs: replay each batch size's step as a CUDA graph over
+        static buffers (the default on the card); False runs each step
+        eagerly. On the CPU the default is the plain eager step, and True
+        runs the static-buffer step eagerly."""
         self.config = config or PipelineConfig()
         if with_focus:
             raise NotImplementedError("focus is not ported yet")
@@ -119,6 +149,10 @@ class FusedPipeline:
             raise NotImplementedError("the port runs skeleton mode only")
         pin_float32_matmul()
         self.device = torch.device(device)
+        self.cuda_graphs = self.device.type == "cuda" if cuda_graphs is None else bool(cuda_graphs)
+        self._device_params: Optional[Dict[str, Any]] = None  # the cast nets, made once
+        self._support_mask: Optional[torch.Tensor] = None
+        self._graphs: Dict[int, _StepGraph] = {}
         cam_shape = (self.config.main.cam_height, self.config.main.cam_width)
         self.hpe = hpe or HumanPoseEstimator(self.config.hpe, self.config.intrinsics,
                                              frame_shape=cam_shape, device=device)
@@ -148,10 +182,14 @@ class FusedPipeline:
         )
 
     def _params(self) -> Dict[str, Any]:
-        nets = self.hpe.nets
-        if self.config.param_dtype != "float32":
-            nets = _cast_trunk_params(nets, getattr(torch, self.config.param_dtype))
-        return {"hpe": nets, "ar": self.ar.model}
+        """The nets the step runs, cast once at the first ``start()``: a
+        CUDA graph holds the addresses of the parameters it was captured with."""
+        if self._device_params is None:
+            nets = self.hpe.nets
+            if self.config.param_dtype != "float32":
+                nets = _cast_trunk_params(nets, getattr(torch, self.config.param_dtype))
+            self._device_params = {"hpe": nets, "ar": self.ar.model}
+        return self._device_params
 
     # ------------------------------------------------------------ the step
 
@@ -227,8 +265,8 @@ class FusedPipeline:
     @torch.inference_mode()
     def start(self) -> None:
         """Materialize support features, support K/V and state; call after
-        support-set edits."""
-        self._state = self.init_state()
+        support-set edits. With static buffers, copies them into the buffers."""
+        state = self.init_state()
         if self.ar.support_features is None and self.ar.support_mask.any():
             self.ar.support_features = self.ar.embed_support()
         elif self.ar.support_features is None:
@@ -236,15 +274,24 @@ class FusedPipeline:
             self.ar.support_features = torch.zeros(
                 (cfg.way, cfg.seq_len, cfg.trans_linear_in_dim), device=self.device)
         s_k, s_v = self.ar.model.support_kv(self.ar.support_features[None])
-        self._support_kv = (s_k[0], s_v[0])
-        self._support_mask = torch.from_numpy(self.ar.support_mask.copy()).to(self.device)
-        self._device_params = self._params()
+        mask = torch.from_numpy(self.ar.support_mask.copy()).to(self.device)
+        fresh = (state, (s_k[0], s_v[0]), mask)
+        if self.cuda_graphs and self._support_mask is not None:
+            current = (self._state, self._support_kv, self._support_mask)
+            for dst, src in zip(_tensors(current), _tensors(fresh), strict=True):
+                dst.copy_(src)
+        else:
+            self._state, self._support_kv, self._support_mask = fresh
+        self._params()
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(self.device)
 
+    @torch.inference_mode()
     def dispatch(self, frame: np.ndarray) -> torch.Tensor:
         """Enqueue one frame; returns the packed vector (on the device)."""
+        if self.cuda_graphs:
+            return self._static_step(frame[None])[0]
         packed, self._state = self._step_impl(
             self._device_params, self._upload(frame), self._support_kv, self._state,
             self._support_mask)
@@ -258,11 +305,21 @@ class FusedPipeline:
         """One device->host copy; host-side field slicing."""
         return self.layout.unpack(packed.cpu().numpy())
 
+    @torch.inference_mode()
     def dispatch_batch(self, frames: np.ndarray) -> torch.Tensor:
+        if self.cuda_graphs:
+            return self._static_step(frames)
         packed, self._state = self._step_batch_impl(
             self._device_params, self._upload(frames), self._support_kv, self._state,
             self._support_mask)
         return packed
+
+    def _static_step(self, frames: np.ndarray) -> torch.Tensor:
+        """(B, H*3/2, W) frames through the static buffers -> (B, size) packed."""
+        graph = self._graphs.get(frames.shape[0])
+        if graph is None:
+            graph = self._graphs[frames.shape[0]] = _StepGraph(self, frames.shape[0])
+        return graph.run(frames)
 
     def stream_batched(self, frames: Iterable[np.ndarray],
                        batch_size: int = 8) -> Iterator[Dict[str, np.ndarray]]:
@@ -309,3 +366,62 @@ class FusedPipeline:
             elements["is_true"] = 0
             elements["requires_focus"] = {}
         return elements
+
+
+class _StepGraph:
+    """The step at one batch size over the pipeline's static buffers.
+
+    ``run`` copies the frames into this size's static input, then runs the
+    step: eagerly on its first call and on the CPU, by replaying the CUDA
+    graph captured right after that first call otherwise. The step writes
+    the new recurrent state into the pipeline's state buffers.
+    """
+
+    def __init__(self, pipe: FusedPipeline, batch: int):
+        self.pipe = pipe
+        cam = pipe.config.main
+        shape = (batch, cam.cam_height * 3 // 2, cam.cam_width)
+        self.frames = torch.empty(shape, dtype=torch.uint8, device=pipe.device)
+        self.on_card = pipe.device.type == "cuda"
+        if self.on_card:
+            self.staging = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+            self.uploaded = torch.cuda.Event()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.kernel_launches = 0  # fused-kernel launches recorded in the graph
+
+    def _body(self) -> torch.Tensor:
+        p = self.pipe
+        packed, new = p._step_batch_impl(p._device_params, self.frames, p._support_kv, p._state,
+                                         p._support_mask)
+        for dst, src in zip(_tensors(p._state), _tensors(new), strict=True):
+            dst.copy_(src)
+        return packed
+
+    def run(self, frames: np.ndarray) -> torch.Tensor:
+        frames = np.ascontiguousarray(frames, np.uint8)
+        if self.on_card:
+            self.uploaded.synchronize()  # the previous upload has left the pinned buffer
+            self.staging.numpy()[...] = frames
+            self.frames.copy_(self.staging, non_blocking=True)
+            self.uploaded.record()
+        else:
+            self.frames.copy_(torch.from_numpy(frames))
+        if self.graph is not None:
+            self.graph.replay()
+            fused_i420_inputs.launches += self.kernel_launches
+            return self.out.clone()  # the next replay overwrites the static output
+        packed = self._body()
+        if self.on_card:
+            self._capture()
+        return packed
+
+    def _capture(self) -> None:
+        before = fused_i420_inputs.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self._body()
+        # capture records the launches and runs none of them
+        self.kernel_launches = fused_i420_inputs.launches - before
+        fused_i420_inputs.launches = before
+        self.graph = graph

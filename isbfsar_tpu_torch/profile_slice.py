@@ -1,4 +1,4 @@
-"""The full-width slice on one GPU, and where its time goes.
+"""The full-width slice and the trained CI stack on one GPU, and where the time goes.
 
     python3 -m isbfsar_tpu_torch.profile_slice [--steps 5] [--trace PATH]
 
@@ -9,13 +9,16 @@ calibrated production one (the ``pose-prod-256-calib`` bundle entry, which
 holds the YOLO branch alone); EfficientNetV2-L and the MeTRAbs head are
 random from a seed, because the 351 MB ``pose-prod-256`` base does not fit
 the card machine's copy of the repo. A missing bundle file raises.
+``build_ci`` is the trained CI operating point (``pose-ci-motions``) at
+240x320 in float32, and ``ci_frames`` the smoke frames at its size.
 
 Run as a script, it warms the slice up on the smoke frames, then profiles
 ``FusedPipeline.step`` over ``--steps`` frames and one ``stream_batched``
-batch of 16 with ``torch.profiler``. For each window it prints the host
-wall time per frame, the device kernel time per frame, the device busy
-share (kernel time over wall time), the kernel launches per frame and the
-kernels that take the most device time. Needs a CUDA device.
+batch of 16 with ``torch.profiler``, with CUDA graphs and eagerly. For
+each window it prints the host wall time per frame, the device kernel time
+per frame, the device busy share (kernel time over wall time), the kernel
+launches per frame and the kernels that take the most device time. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from isbfsar_tpu_torch import weights
-from isbfsar_tpu_torch.configs import PipelineConfig
+from isbfsar_tpu_torch.ar.recognizer import ActionRecognizer
+from isbfsar_tpu_torch.configs import CameraIntrinsics, HPEConfig, MainConfig, PipelineConfig
 from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
+from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
+from isbfsar_tpu_torch.ops.image import bgr_to_i420, i420_to_bgr, resize_area
 from isbfsar_tpu_torch.pipeline import FusedPipeline
 
 SMOKE_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
@@ -56,13 +62,53 @@ def train_support(pipe: FusedPipeline, seed: int = 0) -> None:
     pipe.start()
 
 
-def build_slice(seed: int = 0) -> FusedPipeline:
+def build_slice(seed: int = 0, cuda_graphs: bool = True) -> FusedPipeline:
     """The full-width slice on the card (see the module docstring)."""
     config = PipelineConfig()
     hpe = HumanPoseEstimator(config.hpe, config.intrinsics, seed=seed)
     delta = weights.load_bundle("pose-prod-256-calib")
     hpe.nets["yolo"].load_state_dict(weights.convert_variables(delta["yolo"]), strict=True)
-    pipe = FusedPipeline(config, hpe=hpe)
+    pipe = FusedPipeline(config, hpe=hpe, cuda_graphs=cuda_graphs)
+    train_support(pipe)
+    return pipe
+
+
+def twin(pipe: FusedPipeline, cuda_graphs: bool) -> FusedPipeline:
+    """A second pipeline on the same nets and support set, eager or with graphs."""
+    other = FusedPipeline(pipe.config, hpe=pipe.hpe, ar=pipe.ar, device=str(pipe.device),
+                          cuda_graphs=cuda_graphs)
+    other.start()
+    return other
+
+
+CI_SHAPE = (240, 320)
+
+
+def ci_frames(n: int = 18) -> list:
+    """The smoke frames at the CI stack's 240x320, cycled to ``n``: decoded,
+    INTER_AREA-halved (a 640x480 render at fx=384 is a 320x240 render at
+    fx=192) and re-encoded."""
+    out = []
+    for yuv in smoke_frames():
+        bgr = resize_area(i420_to_bgr(torch.from_numpy(yuv), 480), *CI_SHAPE)
+        out.append(bgr_to_i420(torch.round(bgr).to(torch.uint8).numpy()))
+    return [out[i % len(out)] for i in range(n)]
+
+
+def build_ci(device: str = "cuda", cuda_graphs=None, params=None) -> FusedPipeline:
+    """The trained CI operating point (pose-ci-motions: V2_TINY, YOLO width
+    0.25 at 128, crop 128, 240x320, float32, gate 0.3) with two random
+    support actions."""
+    h, w = CI_SHAPE
+    hcfg = HPEConfig(yolo_input_size=128, crop_size=128, yolo_thresh=0.3, compute_dtype="float32")
+    intr = CameraIntrinsics(fx=192.0, fy=192.0, ppx=160.0, ppy=120.0, width=w, height=h)
+    cfg = PipelineConfig(main=MainConfig(cam_width=w, cam_height=h), intrinsics=intr, hpe=hcfg,
+                         param_dtype="float32")
+    hpe = HumanPoseEstimator(hcfg, intr, params=params or weights.load_bundle("pose-ci-motions"),
+                             backbone_stages=V2_TINY, frame_shape=CI_SHAPE, yolo_width=0.25,
+                             device=device)
+    pipe = FusedPipeline(cfg, hpe=hpe, ar=ActionRecognizer(cfg.ar, seed=1, device=device),
+                         device=device, cuda_graphs=cuda_graphs)
     train_support(pipe)
     return pipe
 
@@ -88,10 +134,30 @@ def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12) -> Non
               f"x{count / n_frames:.0f}  {kname[:110]}")
 
 
+def _profile(name: str, pipe: FusedPipeline, frames: list, steps: int, trace: str = "") -> None:
+    for f in frames[:3]:  # warm-up; with graphs, also the B=1 and B=16 captures
+        pipe.step(f)
+    list(pipe.stream_batched(frames, 16))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for f in frames[:steps]:
+            pipe.step(f)
+        wall = time.perf_counter() - t
+    _report(f"{name} step B=1", prof, wall, steps)
+    if trace:
+        prof.export_chrome_trace(trace)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        list(pipe.stream_batched(frames, 16))
+        wall = time.perf_counter() - t
+    _report(f"{name} stream_batched B=16", prof, wall, 16)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--trace", default="", help="write a Chrome trace of the step window here")
+    ap.add_argument("--trace", default="", help="write a Chrome trace of the graphs' step window here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
@@ -99,25 +165,8 @@ def main(argv=None) -> int:
     pipe = build_slice()
     clip = smoke_frames()
     frames = [clip[i % len(clip)] for i in range(16)]
-    for f in frames[:3]:
-        pipe.step(f)
-    list(pipe.stream_batched(frames, 16))
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for f in frames[:args.steps]:
-            pipe.step(f)
-        wall = time.perf_counter() - t
-    _report("step B=1", prof, wall, args.steps)
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        list(pipe.stream_batched(frames, 16))
-        wall = time.perf_counter() - t
-    _report("stream_batched B=16", prof, wall, 16)
+    _profile("graphs", pipe, frames, args.steps, args.trace)
+    _profile("eager", twin(pipe, cuda_graphs=False), frames, args.steps)
     print(f"[profile] {torch.cuda.get_device_name(0)}")
     return 0
 

@@ -131,10 +131,9 @@ def ci_estimators(ci_params):
 
 def test_estimator_matches_jax_on_rendered_frames(ci_estimators):
     """The trained CI stack on rendered humanoids: detections fire at 0.3,
-    boxes and flags agree exactly, poses to 1.5 cm (the truncation crop
-    gather turns last-ulp differences of the float32 homography into
-    whole-pixel flips, which move a pose by millimetres; the CI nets' own
-    error is ~10 cm)."""
+    boxes and flags agree exactly, poses to 1e-5 m (the homography is
+    bit-equal to XLA's, so the truncating crop gather takes the same
+    pixels; tests/torch_parity_report.py reads 1.7e-6 m)."""
     jax_est, ours = ci_estimators
     frames, _ = render_motion_clip("wave", n_frames=6, frame_hw=CI_FRAME_HW, intrinsics=CI_INTRINSICS)
     batch = torch.from_numpy(np.stack(frames).astype(np.float32))
@@ -145,7 +144,7 @@ def test_estimator_matches_jax_on_rendered_frames(ci_estimators):
         np.testing.assert_array_equal(bbox[i].numpy(), np.asarray(jb))
         assert bool(found[i]) == bool(jf) and bool(visible[i]) == bool(jv)
         np.testing.assert_allclose(float(conf[i]), float(jc), atol=1e-5)
-        np.testing.assert_allclose(pose[i].numpy(), np.asarray(jp), atol=1.5e-2)
+        np.testing.assert_allclose(pose[i].numpy(), np.asarray(jp), atol=1e-5)
     assert found.all()
 
 

@@ -40,8 +40,9 @@ def _boxes(rng, n):
 
 
 def test_virtual_camera_and_warp_matrix_match_jax():
-    # float32 geometry in two frameworks: agreement to a few ulp of the
-    # largest entry (the JAX side pins Precision.HIGHEST)
+    # the port reproduces XLA's float32 products (FMA chains in order), so
+    # the homography is bit-equal: the crop gather truncates, and one ulp
+    # can flip a crop pixel
     rng = np.random.default_rng(0)
     x1, x2, y1, y2 = _boxes(rng, 16)
     new_k, rot = tg.virtual_camera(T(x1), T(x2), T(y1), T(y2), T(K), 256)
@@ -49,9 +50,33 @@ def test_virtual_camera_and_warp_matrix_match_jax():
     for i in range(16):
         jk, jrot = jg.virtual_camera(*(jnp.float32(v[i]) for v in (x1, x2, y1, y2)), jnp.asarray(K), 256)
         jh = jg.warp_matrix(jnp.asarray(K), jk[None], jrot)
-        np.testing.assert_allclose(new_k[i].numpy(), np.asarray(jk), rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(rot[i].numpy(), np.asarray(jrot[0]), rtol=0, atol=1e-6)
-        np.testing.assert_allclose(h[i].numpy(), np.asarray(jh[0]), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(new_k[i].numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(rot[i].numpy(), np.asarray(jrot[0]))
+        np.testing.assert_array_equal(h[i].numpy(), np.asarray(jh[0]))
+
+
+@pytest.mark.parametrize("intr,out_dim", [(CameraIntrinsics(), 256),
+                                          (CameraIntrinsics(fx=192.0, fy=192.0, ppx=160.0, ppy=120.0,
+                                                            width=320, height=240), 128)])
+def test_geometry_is_bit_equal_to_jit_and_free_of_the_batch_size(intr, out_dim):
+    """Integer pixel boxes as the detector gives them, through the jitted
+    JAX functions and through the port at B=8 and at B=1: all bit-equal."""
+    k = intr.matrix().astype(np.float32)
+    rng = np.random.default_rng(11)
+    x1 = rng.integers(0, intr.width - 60, 8)
+    y1 = rng.integers(0, intr.height - 60, 8)
+    box = [v.astype(np.float32) for v in (x1, x1 + rng.integers(10, intr.width // 2, 8),
+                                           y1, y1 + rng.integers(20, intr.height // 2, 8))]
+    jvc = jax.jit(lambda *b: jg.virtual_camera(*b, jnp.asarray(k), out_dim))
+    jwm = jax.jit(lambda nk, r: jg.warp_matrix(jnp.asarray(k), nk[None], r)[0])
+    new_k, rot = tg.virtual_camera(*(T(v) for v in box), T(k), out_dim)
+    h = tg.warp_matrix(T(k), new_k, rot)
+    for i in range(8):
+        jk, jrot = jvc(*(v[i] for v in box))
+        np.testing.assert_array_equal(h[i].numpy(), np.asarray(jwm(jk, jrot)))
+        one_k, one_rot = tg.virtual_camera(*(T(v[i:i + 1]) for v in box), T(k), out_dim)
+        assert torch.equal(one_k, new_k[i:i + 1]) and torch.equal(one_rot, rot[i:i + 1])
+        assert torch.equal(tg.warp_matrix(T(k), one_k, one_rot), h[i:i + 1])
 
 
 def test_inv_intrinsics_and_fov_match_jax():

@@ -29,10 +29,14 @@ from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
 from isbfsar_tpu_torch.pipeline import FusedPipeline
 
 BOOLEANS = ("pose_ok", "ar_ready")
-# float32 in both frameworks. The poses carry the crop-gather flips of
-# last-ulp homography differences (millimetres); probs and is_true follow.
-TOL = {"pose": 1.5e-2, "pose_abs": 1.5e-2, "distance": 4e-2, "conf": 1e-5, "bbox": 0.0,
-       "probs": 1e-3, "is_true": 1e-3}
+# float32 in both frameworks. The homography, and so the crop, is bit-equal
+# to XLA's (ops/geometry.py); what is left is the convolutions' summation
+# order: tests/torch_parity_report.py reads 1.4e-5 m in pose, 5.4e-5 m in
+# pose_abs, 3.6e-5 m in distance, 3.2e-6 in probs and 2.4e-7 in is_true on
+# the trained stack. The limits are a few times that, inside the
+# reference's 1 mm keypoint budget.
+TOL = {"pose": 1e-4, "pose_abs": 3e-4, "distance": 3e-4, "conf": 1e-5, "bbox": 0.0,
+       "probs": 2e-5, "is_true": 2e-6}
 
 
 def _support(jar, ar):
@@ -120,6 +124,38 @@ def test_batched_equals_sequential(trained_ci):
     batched = list(pipe.stream_batched(frames, 8))
     # same code and the same recurrence; only the batch size of the convs differs
     _assert_close(batched, seq, {k: 1e-5 for k in TOL})
+
+
+def test_static_buffer_step_equals_plain_step(trained_ci):
+    """The step the CUDA graphs replay, run eagerly on the CPU over its
+    static buffers (``cuda_graphs=True``), against the plain step: 18
+    frames at batch sizes 1 and 4, across a ``start()`` after a support
+    edit, bit-equal. The buffers are written in place, never replaced."""
+    pipe, frames, _, _ = trained_ci
+    static = FusedPipeline(pipe.config, hpe=pipe.hpe, ar=pipe.ar, device="cpu", cuda_graphs=True)
+    assert not pipe.cuda_graphs and static.cuda_graphs
+
+    def run(p):
+        p.start()
+        buffers = [id(t) for t in (p._state.window, p._state.n_valid, p._support_kv[0],
+                                   p._support_mask)]
+        outs = [p.step(f) for f in frames[:12]]
+        outs += [p.layout.unpack(row) for row in p.dispatch_batch(np.stack(frames[12:16])).numpy()]
+        p.ar.train({"flag": "a2", "data": {"poses": np.full((16, 90), 0.1, np.float32)}})
+        p.start()
+        outs += [p.step(f) for f in frames[16:18]]
+        assert p.ar.remove("a2")
+        same = buffers == [id(t) for t in (p._state.window, p._state.n_valid, p._support_kv[0],
+                                           p._support_mask)]
+        return outs, same
+
+    plain, replaced = run(pipe)
+    ours, kept = run(static)
+    assert kept and not replaced
+    assert sorted(static._graphs) == [1, 4] and all(g.graph is None for g in static._graphs.values())
+    assert ours[15]["ar_ready"] == 1 and ours[15]["probs"][2] == 0
+    assert ours[-1]["ar_ready"] == 0 and ours[-1]["probs"][2] > 0
+    _assert_close(ours, plain, {k: 0.0 for k in TOL})
 
 
 def test_random_ci_sizes_match_jax():
