@@ -6,31 +6,41 @@
 Phases, each timed; any failure exits non-zero and prints no result:
 
 1. environment: torch, CUDA, and the card's name and power limit;
-2. build: nvcc compiles ``isbfsar_tpu_torch/csrc/fused_i420.cu``;
-3. kernel: the fused I420 kernel against its plain PyTorch version on the
+2. build: one nvcc for each of ``isbfsar_tpu_torch/csrc/fused_i420.cu``
+   and ``csrc/head_pose.cu``, started together;
+3. kernels: the fused I420 kernel against its plain PyTorch version on the
    card at every ``KERNEL_SHAPES`` entry, at its batch and at B=1 (BGR
    bit-equal, YOLO atol 1e-5), with its time at B=16 and at B=1, the plain
-   version's time and the bounds;
-4. small input: the whole slice at the trained CI operating point
-   (pose-ci-motions, float32) with CUDA graphs on the card, against the
-   same slice on the CPU (which the tests hold against the JAX package),
-   its ``stream_batched`` (B=8) against its ``step``, and both against the
-   eager step on the card (``cuda_graphs=False``); the kernel's launches
-   are counted under graph replay;
+   version's time and the bounds; the head-pose kernel against its plain
+   version (``focus/geometry.py``) at B=1, 8 and 16 on random face
+   landmarks, on the committed face frames' landmarks and on six landmarks
+   at one pixel, with its time, the plain version's (a synchronised host
+   loop: ``torch.linalg.svd`` waits for the host, so no graph holds it)
+   and its bound;
+4. small input: the whole slice with focus at the trained CI operating
+   point (pose-ci-motions, focus-ci at ``CI_FOCUS_CFG``, float32) with
+   CUDA graphs on the card, on smoke and face frames, against the same
+   slice on the CPU (which the tests hold against the JAX package), its
+   ``stream_batched`` (B=8) against its ``step``, and both against the
+   eager step on the card (``cuda_graphs=False``); at least one frame must
+   find a face; both kernels' launches are counted under graph replay;
 5. the slice at full width: 640x480 I420 -> YOLOv4 @ 256 -> EfficientNetV2-L
-   @ 256 crop -> TRX match, bf16, through ``FusedPipeline.step`` (20 frames)
-   and ``stream_batched`` (64 frames, B=16) with CUDA graphs, built by
+   @ 256 crop -> TRX match, bf16, and focus (``FocusConfig()``: gaze crop
+   224, bf16) through ``FusedPipeline.step`` (20 frames) and
+   ``stream_batched`` (64 frames, B=16) with CUDA graphs, built by
    ``profile_slice.build_slice``: the calibrated production detector (the
    124 MB pose-prod-256-calib bundle entry) with EfficientNetV2-L and the
-   head random from seed 0, at the 0.3 gate. The 351 MB pose-prod-256 base
-   does not fit the card machine's copy of the repo. At least one frame
-   must fire at the gate, and the ``step`` p50 must be under one 30 FPS
-   frame period (33 ms). Launch counts are zeroed just before the graphs
-   drive the path and read just after; the same frames then run eagerly
+   head random from seed 0, at the 0.3 gate, and the trained focus-ci
+   nets. The 351 MB pose-prod-256 base does not fit the card machine's
+   copy of the repo. At least one frame must fire at the gate and one find
+   a face, and the ``step`` p50 must be under one 30 FPS frame period
+   (33 ms). Launch counts are zeroed just before the graphs drive the path
+   and read just after; the same frames then run eagerly
    (``cuda_graphs=False``) as the oracle of the graphs, and the eager p50
-   is printed for the record.
+   is printed for the record, as are the focus-off ``step`` p50 and the
+   device ms and kernels per frame with focus on and off.
 
-Both weight files are required: a missing one fails the run.
+The three weight files are required: a missing one fails the run.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
@@ -47,37 +57,55 @@ import numpy as np
 import torch
 
 from isbfsar_tpu_torch import weights
-from isbfsar_tpu_torch.kernel_bench import graph_ms, loop_ms
-from isbfsar_tpu_torch.ops import fused_input
-from isbfsar_tpu_torch.profile_slice import build_ci, build_slice, ci_frames, smoke_frames, twin
+from isbfsar_tpu_torch.configs import CameraIntrinsics
+from isbfsar_tpu_torch.focus import geometry
+from isbfsar_tpu_torch.kernel_bench import (face_landmarks, graph_ms, head_pose_bound,
+                                            head_pose_errors, launch_ms, loop_ms)
+from isbfsar_tpu_torch.ops import build, fused_input, head_pose
+from isbfsar_tpu_torch.profile_slice import (CI_INTRINSICS, build_ci, build_slice, ci_frames,
+                                             focus_frames, profile_steps, slice_frames, twin)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 KERNEL_SHAPES = ((480, 640, 256, 16), (240, 320, 128, 8), (120, 160, 128, 3))  # H, W, S, B
 TOL_BGR, TOL_YOLO = 0.0, 1e-5
+# The head-pose kernel (float64 inside) against its plain version (float32,
+# cuSOLVER's SVD) on the card: the rotation, and the center over its
+# distance (at least 1 m). An H100 read up to 3.6e-6 and 1.2e-6 over the
+# inputs of this phase and of kernel_bench.py; limits a few times that.
+TOL_HEAD_ROT, TOL_HEAD_CENTER = 1e-5, 5e-6
 # Phase 4 in float32 at CI size, the card against the CPU and the card's
 # stream_batched (B=8) against its step. The homography is bit-equal on
 # both and at every batch size (ops/geometry.py), so the crop gather takes
 # the same pixels; what is left are the float32 convolutions' summation
 # orders (stage_trace.py: the raw YOLO outputs are the first stage that
 # differs between B=8 and B=1; box, homography and crop are equal). An H100
-# read 2.4e-7 m in pose and pose_abs, 4.8e-7 m in distance, 3.6e-7 in
-# probs, 8.9e-8 in is_true, conf and bbox equal; the limits are about four
-# times that.
+# read 2.4e-7 m in pose, 3.6e-7 m in pose_abs, 9.5e-7 m in distance, 5.4e-7
+# in probs, 8.9e-8 in is_true, conf and bbox equal; and in the focus fields
+# f_score 0, f_bbox 4.6e-5 px, f_landmarks 1.5e-4 px, f_head_position
+# 8.6e-7 m, f_head_rotvec 4.6e-6, f_norm_head_rot2d 4.4e-6 and the gaze
+# vectors 3.7e-6 (the landmark refiner's convolutions are the first focus
+# stage that differs, stage_trace.py). The limits are two to four times that.
 TOL_CI = {"pose": 1e-6, "pose_abs": 1e-6, "distance": 2e-6, "conf": 1e-6, "bbox": 0.0,
-          "probs": 1.5e-6, "is_true": 5e-7}
+          "probs": 1.5e-6, "is_true": 5e-7, "f_score": 1e-6, "f_bbox": 2e-4,
+          "f_landmarks": 6e-4, "f_head_position": 4e-6, "f_head_rotvec": 2e-5,
+          "f_norm_head_rot2d": 2e-5, "f_gaze": 1.5e-5, "f_norm_gaze": 1.5e-5}
 # Phase 4's and 5's graph replays against the eager step on the card:
 # the same kernels on the same inputs, so bit-equal (an H100 read 0).
-TOL_GRAPH = {"pose": 0.0, "pose_abs": 0.0, "distance": 0.0, "conf": 0.0, "bbox": 0.0,
-             "probs": 0.0, "is_true": 0.0}
+TOL_GRAPH = {k: 0.0 for k in TOL_CI}
 # Phase 5, stream_batched vs step in bf16 at full width, a few times what an
 # H100 read: the random trunk gathers the joints near one point, which leaves
 # the absolute position ill-conditioned, so pose_abs and distance read
-# millimetres there.
+# millimetres there. The focus fields read f_score and f_bbox 0,
+# f_landmarks 1.4e-3 px, f_head_position 6.6e-6 m, f_head_rotvec and
+# f_norm_head_rot2d 8.9e-6, and the gaze vectors 1.2e-3 (the bf16 gaze net).
 TOL_BATCHED = {"pose": 1e-6, "pose_abs": 1e-2, "distance": 2.5e-2, "conf": 1e-6, "bbox": 0.0,
-               "probs": 2e-6, "is_true": 2e-6}
+               "probs": 2e-6, "is_true": 2e-6, "f_score": 1e-6, "f_bbox": 1e-3,
+               "f_landmarks": 5e-3, "f_head_position": 3e-5, "f_head_rotvec": 4e-5,
+               "f_norm_head_rot2d": 4e-5, "f_gaze": 5e-3, "f_norm_gaze": 5e-3}
 FRAME_PERIOD_MS = 1e3 / 30  # the step must keep up with a 30 FPS camera
-EXACT = ("pose_ok", "ar_ready")
+EXACT = ("pose_ok", "ar_ready", "f_found")
+KERNELS = (fused_input.fused_i420_inputs, head_pose.head_pose_from_landmarks)
 
 
 def log(msg: str) -> None:
@@ -141,6 +169,49 @@ def check_kernel(rng) -> dict:
     return entry
 
 
+def check_head_pose(rng) -> dict:
+    """The head-pose kernel against its plain version at B=1, 8 and 16 on
+    random face landmarks, on the face frames' landmarks at both sizes and
+    on six landmarks at one pixel; times and bounds at B=16 and B=1."""
+    k = torch.from_numpy(CameraIntrinsics().matrix()).cuda()
+    launch = launch_ms()
+    entry = {"err_rot": 0.0, "err_center": 0.0}
+    cases = [(f"B={b} random faces", torch.from_numpy(face_landmarks(b, rng)).cuda(), k)
+             for b in (1, 8, 16)]
+    for height, intr in ((480, CameraIntrinsics()), (240, CI_INTRINSICS)):
+        cases.append((f"{height}-line face frames", torch.from_numpy(
+            focus_frames(height)["landmarks"]).cuda(), torch.from_numpy(intr.matrix()).cuda()))
+    pts = torch.tensor([[320.0, 240.0], [100.3, 50.7], [float(k[0, 2]), float(k[1, 2])]])
+    cases.append(("six landmarks at one pixel", pts[:, None].expand(-1, 6, -1).contiguous().cuda(), k))
+    for name, lms, kk in cases:
+        err_rot, err_center = head_pose_errors(lms, kk)
+        rot, center = head_pose.head_pose_from_landmarks(lms, kk)
+        torch.cuda.synchronize()
+        log(f"[head pose] {name}: max|err| rot {err_rot:.3g} (tol {TOL_HEAD_ROT}), center "
+            f"{err_center:.3g} of its distance (tol {TOL_HEAD_CENTER})")
+        if not (torch.isfinite(rot).all() and torch.isfinite(center).all()):
+            raise AssertionError(f"head pose: non-finite output on {name}")
+        if not (err_rot <= TOL_HEAD_ROT and err_center <= TOL_HEAD_CENTER):
+            raise AssertionError("head_pose_from_landmarks disagrees with its plain version")
+        entry["err_rot"] = max(entry["err_rot"], err_rot)
+        entry["err_center"] = max(entry["err_center"], err_center)
+        if not name.startswith(("B=1 ", "B=16")):
+            continue
+        ms = graph_ms(lambda: head_pose.head_pose_from_landmarks(lms, kk))
+        bound_ms = head_pose_bound(lms, kk, launch)
+        log(f"[head pose] {name}: time {ms:.5f} ms, bound {bound_ms:.5f} ms (launch {launch:.5f} "
+            f"ms + float64 operations)")
+        if name.startswith("B=1 "):
+            entry.update(ms_b1=ms, bound_ms_b1=bound_ms)
+            continue
+        # no graph holds the plain version: torch.linalg.svd waits for the host
+        plain_ms = loop_ms(lambda: geometry.head_pose_from_landmarks(lms, kk), reps=5)
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, shape="B=16, 40 iterations")
+        log(f"[head pose] {name}: plain {plain_ms:.3f} ms (synchronised host loop)")
+    entry["max_abs_err"] = max(entry["err_rot"], entry["err_center"])
+    return entry
+
+
 def check_close(what: str, got: list, want: list, tol: dict) -> None:
     """Field-wise max |got - want| over paired packed outputs, logged beside
     each field's largest |value|; raises if a field is over its limit (the
@@ -180,65 +251,87 @@ def dispatches(n_steps: int, n_batched: int, batch: int) -> int:
     return n_steps + n_batched // batch + n_batched % batch
 
 
+def zero_launches() -> None:
+    for kernel in KERNELS:
+        kernel.launches = 0
+
+
+def launches() -> dict:
+    return {kernel.__name__: kernel.launches for kernel in KERNELS}
+
+
+def check_launches(where: str, counts: dict, want: int) -> None:
+    if any(n != want for n in counts.values()):
+        raise AssertionError(f"{where}: kernel launches {counts}, not one per dispatch ({want})")
+
+
 def check_small_input() -> None:
-    """The slice at the trained CI operating point (pose-ci-motions: V2_TINY,
-    YOLO width 0.25 at 128, crop 128, 240x320) in float32 on the card with
-    CUDA graphs, against the same slice on the CPU, batched against
-    per-frame, and the graphs against the eager step. Its trained trunk
-    gives spread-out poses, so a batched step that misorders the smoothing
-    state or the feature ring shows here."""
-    params = weights.load_bundle("pose-ci-motions")
-    frames = ci_frames(18)
-    cpu = build_ci("cpu", params=params)
+    """The slice with focus at the trained CI operating point
+    (pose-ci-motions: V2_TINY, YOLO width 0.25 at 128, crop 128, 240x320;
+    focus-ci at CI_FOCUS_CFG; float32) on the card with CUDA graphs,
+    against the same slice on the CPU, batched against per-frame, and the
+    graphs against the eager step. Its trained trunks give spread-out poses
+    and real faces, so a batched step that misorders the smoothing state
+    or the feature ring shows here."""
+    params, focus_params = weights.load_bundle("pose-ci-motions"), weights.load_bundle("focus-ci")
+    frames = ci_frames(18, faces=True)
+    cpu = build_ci("cpu", params=params, focus_params=focus_params)
     outs_cpu = [cpu.step(f) for f in frames]
-    card = build_ci("cuda", cuda_graphs=True, params=params)
-    fused_input.fused_i420_inputs.launches = 0
+    card = build_ci("cuda", cuda_graphs=True, params=params, focus_params=focus_params)
+    zero_launches()
     seq, batched, _, _ = drive(card, frames, frames, 8)  # two batches of 8 and a tail of 2
-    launches = fused_input.fused_i420_inputs.launches
+    counts = launches()
     eager_seq, eager_batched, _, _ = drive(twin(card, cuda_graphs=False), frames, frames, 8)
     fired = sum(int(o["conf"] > 0) for o in seq)
-    log(f"[small] pose-ci-motions, 18 frames 240x320 float32, {fired}/18 fired at 0.3; "
-        f"graphs at B={sorted(card._graphs)}; fused_i420_inputs launches {launches}")
+    faces = sum(int(o["f_found"] > 0) for o in seq)
+    log(f"[small] pose-ci-motions and focus-ci, 18 frames 240x320 float32, {fired}/18 fired at "
+        f"0.3, a face found on {faces}/18; graphs at B={sorted(card._graphs)}; launches {counts}")
     if fired == 0:
         raise AssertionError("the CI-size detector fired on no frame")
-    if launches != dispatches(18, 18, 8):
-        raise AssertionError(f"{launches} kernel launches for {dispatches(18, 18, 8)} dispatches")
+    if faces == 0:
+        raise AssertionError("the CI-size face detector found no face")
+    check_launches("small", counts, dispatches(18, 18, 8))
     check_close("small: CUDA graphs vs CPU", seq, outs_cpu, TOL_CI)
     check_close("small: CUDA graphs stream_batched vs step", batched, seq, TOL_CI)
     check_close("small: CUDA graphs vs eager, step", seq, eager_seq, TOL_GRAPH)
     check_close("small: CUDA graphs vs eager, stream_batched", batched, eager_batched, TOL_GRAPH)
 
 
-def run_slice(card: str, clip) -> int:
-    """Drive the full-width main path with CUDA graphs, then eagerly; returns
-    the kernel's launch count on the graphs' run."""
+def warm(pipe, frames: list) -> None:
+    """Bounded warm-up: cuDNN heuristics, lazy CUDA init, the B=1 and B=16 captures."""
+    for f in frames[:2]:
+        pipe.step(f)
+    for _ in pipe.stream_batched(frames[:16], 16):
+        pass
+    torch.cuda.synchronize()
+
+
+def run_slice(card: str, clip) -> dict:
+    """Drive the full-width main path with CUDA graphs, then eagerly, then
+    with focus off; returns the kernels' launch counts on the graphs' run."""
     t0 = time.perf_counter()
     pipe = build_slice(seed=0, cuda_graphs=True)
     eager = twin(pipe, cuda_graphs=False)
+    no_focus = twin(pipe, cuda_graphs=True, with_focus=False)
     gate = pipe.config.hpe.yolo_thresh
     log(f"[slice] weights: pose-prod-256-calib detector, EfficientNetV2-L and head random "
-        f"from seed 0; gate {gate}; built in {time.perf_counter() - t0:.1f} s")
+        f"from seed 0; gate {gate}; focus-ci at crop {pipe.config.focus.gaze_image_size}, "
+        f"{pipe.config.focus.compute_dtype}; built in {time.perf_counter() - t0:.1f} s")
     frames = [clip[i % len(clip)] for i in range(64)]
 
-    # bounded warm-up (cuDNN heuristics, lazy CUDA init, the B=1 and B=16 captures)
     t0 = time.perf_counter()
-    for p in (pipe, eager):
-        for f in frames[:2]:
-            p.step(f)
-        for _ in p.stream_batched(frames[:16], 16):
-            pass
-    torch.cuda.synchronize()
+    for p in (pipe, eager, no_focus):
+        warm(p, frames)
     log(f"[slice] warm-up and graph capture at B={sorted(pipe._graphs)} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    fused_input.fused_i420_inputs.launches = 0
+    zero_launches()
     seq, batched, lat, t_batched = drive(pipe, frames[:20], frames, 16)
-    launches = fused_input.fused_i420_inputs.launches
+    counts = launches()
     eager_seq, eager_batched, eager_lat, _ = drive(eager, frames[:20], frames, 16)
+    _, _, off_lat, t_off = drive(no_focus, frames[:20], frames, 16)
 
-    if launches != dispatches(20, 64, 16):
-        raise AssertionError(f"the main path launched the fused I420 kernel {launches} times, "
-                             f"not once per dispatch ({dispatches(20, 64, 16)})")
+    check_launches("the main path", counts, dispatches(20, 64, 16))
     if len(batched) != 64:
         raise AssertionError(f"stream_batched gave {len(batched)} results for 64 frames")
     for out in seq + batched:
@@ -247,23 +340,33 @@ def run_slice(card: str, clip) -> int:
                 raise AssertionError(f"non-finite {key!r} in the slice's output")
     fired = sum(int(o["conf"] > 0) for o in seq)
     pose_ok = sum(int(o["pose_ok"] > 0) for o in seq)
-    log(f"[slice] {fired}/20 frames fired at the {gate} gate, "
-        f"{pose_ok}/20 with a visible pose, ar_ready on {sum(int(o['ar_ready']) for o in seq)}")
+    faces = sum(int(o["f_found"] > 0) for o in seq)
+    log(f"[slice] {fired}/20 frames fired at the {gate} gate, {pose_ok}/20 with a visible pose, "
+        f"ar_ready on {sum(int(o['ar_ready']) for o in seq)}, a face found on {faces}/20")
     if fired == 0:
         raise AssertionError("no detection fired over 20 frames")
+    if faces == 0:
+        raise AssertionError("no face found over 20 frames")
     check_close("slice: stream_batched vs step, 20 frames", batched[:20], seq, TOL_BATCHED)
     check_close("slice: CUDA graphs vs eager, step", seq, eager_seq, TOL_GRAPH)
     check_close("slice: CUDA graphs vs eager, stream_batched", batched, eager_batched, TOL_GRAPH)
     p50 = float(np.percentile(lat, 50)) * 1e3
     eager_p50 = float(np.percentile(eager_lat, 50)) * 1e3
+    off_p50 = float(np.percentile(off_lat, 50)) * 1e3
     log(f"[slice] step latency p50 {p50:.2f} ms (min {min(lat) * 1e3:.2f} ms) over 20 frames "
-        f"with CUDA graphs, limit {FRAME_PERIOD_MS:.1f} ms; eager p50 {eager_p50:.2f} ms "
-        f"(min {min(eager_lat) * 1e3:.2f} ms); stream_batched B=16: {64 / t_batched:.1f} FPS "
-        f"over 64 frames; {card}")
-    log(f"[slice] fused_i420_inputs launches on the main path: {launches}")
+        f"with CUDA graphs and focus, limit {FRAME_PERIOD_MS:.1f} ms; eager p50 {eager_p50:.2f} ms "
+        f"(min {min(eager_lat) * 1e3:.2f} ms); focus off p50 {off_p50:.2f} ms (min "
+        f"{min(off_lat) * 1e3:.2f} ms); stream_batched B=16: {64 / t_batched:.1f} FPS with "
+        f"focus, {64 / t_off:.1f} FPS without, over 64 frames; {card}")
+    on = profile_steps("slice, focus on", pipe, frames, 4, top=0)
+    off = profile_steps("slice, focus off", no_focus, frames, 4, top=0)
+    log(f"[slice] focus adds {on[0] - off[0]:.3f} device ms and {on[1] - off[1]:.0f} kernels per "
+        f"frame at B=1 ({on[0]:.3f} ms, {on[1]:.0f} kernels against {off[0]:.3f} ms, "
+        f"{off[1]:.0f}; torch.profiler, CUDA graphs)")
+    log(f"[slice] kernel launches on the main path: {counts}")
     if not p50 < FRAME_PERIOD_MS:
         raise AssertionError(f"step p50 {p50:.2f} ms is over the {FRAME_PERIOD_MS:.1f} ms frame period")
-    return launches
+    return counts
 
 
 def main() -> int:
@@ -278,33 +381,44 @@ def main() -> int:
     phases["env"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    info = fused_input.build()
-    ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "spill" in ln]
-    log(f"[build] {info.path} in {info.seconds:.1f} s; " + " | ".join(ptxas))
+    for name, info in build.build_all().items():
+        ptxas = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: {info.path} in {info.seconds:.1f} s; " + " | ".join(ptxas))
     phases["build"] = time.perf_counter() - t
 
     rng = np.random.default_rng(0)
     t = time.perf_counter()
     entry = check_kernel(rng)
-    phases["kernel"] = time.perf_counter() - t
+    pose_entry = check_head_pose(rng)
+    phases["kernels"] = time.perf_counter() - t
 
-    clip = smoke_frames()
     t = time.perf_counter()
     check_small_input()
     phases["small"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    launches = run_slice(card, clip)
+    counts = run_slice(card, slice_frames())
     phases["slice"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",
                 "source": "isbfsar_tpu_torch/csrc/fused_i420.cu",
-                "replaces": "isbfsar_tpu/ops/pallas_input.py:118", "launches": launches,
+                "replaces": "isbfsar_tpu/ops/pallas_input.py:118",
+                "launches": counts["fused_i420_inputs"],
                 "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
                 "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
                 "bound_by": entry["bound_by"], "library_ms": None, "shape": entry["shape"],
-                "ms_b1": entry["ms_b1"], "bound_ms_b1": entry["bound_ms_b1"]}]
+                "ms_b1": entry["ms_b1"], "bound_ms_b1": entry["bound_ms_b1"]},
+               {"name": "head_pose_from_landmarks", "route": "cuda",
+                "source": "isbfsar_tpu_torch/csrc/head_pose.cu",
+                # replaces no Pallas kernel: the JAX function is
+                # isbfsar_tpu/focus/geometry.py:106, which XLA compiles
+                "replaces": None, "launches": counts["head_pose_from_landmarks"],
+                "max_abs_err": pose_entry["max_abs_err"], "ms": pose_entry["ms"],
+                "plain_ms": pose_entry["plain_ms"], "bound_ms": pose_entry["bound_ms"],
+                "bound_by": "operations", "library_ms": None, "shape": pose_entry["shape"],
+                "ms_b1": pose_entry["ms_b1"], "bound_ms_b1": pose_entry["bound_ms_b1"],
+                "err_rot": pose_entry["err_rot"], "err_center_rel": pose_entry["err_center"]}]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

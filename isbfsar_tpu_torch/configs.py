@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the fields of ``isbfsar_tpu/configs.py`` that the ported slice
-reads (I420 frame -> pose -> TRX match), with the same defaults. The port
+reads (I420 frame -> pose -> TRX match -> focus), with the same defaults. The port
 keeps its own copy so it imports nothing of the JAX package.
 """
 
@@ -88,11 +88,27 @@ class ARConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FocusConfig:
+    """Gaze-based focus detection. The nets have fixed widths; only the
+    gaze crop size and the compute type vary."""
+
+    area_thr: float = 0.03  # face bbox area fraction above which the human is "close"
+    close_thr: float = -0.95  # close: normalized gaze z below this is focus
+    dist_thr: float = 0.3  # far: |normalized head rot y| under this is focus
+    foc_rot_thr: float = 0.7  # close: |head yaw rotvec| above this is not focus
+    patience: int = 3  # majority vote over the last N observations
+    gaze_image_size: int = 224
+    normalized_camera_distance: float = 0.6
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     main: MainConfig = dataclasses.field(default_factory=MainConfig)
     intrinsics: CameraIntrinsics = dataclasses.field(default_factory=CameraIntrinsics)
     hpe: HPEConfig = dataclasses.field(default_factory=HPEConfig)
     ar: ARConfig = dataclasses.field(default_factory=ARConfig)
+    focus: FocusConfig = dataclasses.field(default_factory=FocusConfig)
     # Storage dtype of the two conv trunks (YOLO and EfficientNetV2); the
     # decode heads, BatchNorm statistics and the TRX stay float32.
     param_dtype: str = "bfloat16"

@@ -1,8 +1,8 @@
-"""Times of the fused I420 kernel on one GPU.
+"""Times of the port's CUDA kernels on one GPU.
 
     python3 -m isbfsar_tpu_torch.kernel_bench [--parent DIR] [--bands 4,2,1]
 
-At B=16 and at B=1, 480x640 frames, S=256, it prints two times per launch:
+The fused I420 kernel: at B=16 and at B=1, 480x640 frames, S=256, it prints two times per launch:
 ``graph``, the device time, from CUDA events around replays of a CUDA graph
 of ``REPS`` launches; and ``loop``, CUDA events around a Python loop of
 launches, which the host's launch rate bounds when a launch is short.
@@ -10,7 +10,12 @@ With ``--parent DIR`` (an unpacked earlier tree of this repository;
 repeatable), it builds that tree's kernel too and times the versions in
 turns: the parents, this tree, this tree, the parents in reverse. ``--bands`` also times this tree's kernel with
 each listed band height G forced (the plan's choice is the default).
-Needs a CUDA device.
+
+The head-pose kernel: at B=1, 8 and 16 on random face landmarks
+(:func:`face_landmarks`), its graph time, the plain version's time from a
+synchronised host loop (``torch.linalg.svd`` waits for the host, so no
+graph holds it), its bound (:func:`head_pose_bound`) and its largest
+differences from the plain version. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,9 +28,12 @@ import sys
 import numpy as np
 import torch
 
-from isbfsar_tpu_torch.ops import fused_input
+from isbfsar_tpu_torch.configs import CameraIntrinsics
+from isbfsar_tpu_torch.focus import geometry
+from isbfsar_tpu_torch.ops import fused_input, head_pose
 
 REPS = 20  # launches per graph
+FP64_OPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA data sheet)
 
 
 def graph_ms(fn, reps: int = REPS, replays: int = 10) -> float:
@@ -59,6 +67,55 @@ def loop_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def face_landmarks(n: int, rng: np.random.Generator, intrinsics=None,
+                   noise_px: float = 1.0) -> np.ndarray:
+    """(n, 6, 2) float32 pixel landmarks of the canonical face under random
+    head rotations (up to 0.8 rad about each axis), 0.3-2 m away inside the
+    view, projected through ``intrinsics`` with Gaussian pixel noise."""
+    k = (intrinsics or CameraIntrinsics()).matrix().astype(np.float64)
+    out = np.empty((n, 6, 2), np.float32)
+    for i in range(n):
+        ax, ay, az = rng.uniform(-0.8, 0.8, 3)
+        rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
+        ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
+        rz = np.array([[np.cos(az), -np.sin(az), 0], [np.sin(az), np.cos(az), 0], [0, 0, 1]])
+        z = rng.uniform(0.3, 2.0)
+        pos = np.array([rng.uniform(-0.3, 0.3) * z, rng.uniform(-0.2, 0.2) * z, z])
+        proj = (geometry.CANONICAL_FACE_3D @ (rz @ ry @ rx).T + pos) @ k.T
+        out[i] = proj[:, :2] / proj[:, 2:] + rng.normal(0.0, noise_px, (6, 2))
+    return out
+
+
+def launch_ms() -> float:
+    """Device ms of the smallest kernel (a one-element add) back to back in
+    a CUDA graph: what a launch costs the stream."""
+    tiny = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: tiny.add_(1.0))
+
+
+def head_pose_bound(landmarks: torch.Tensor, k: torch.Tensor, launch: float,
+                    iters: int = 40) -> float:
+    """The least time of a head-pose launch on these landmarks: the launch,
+    plus the float64 operations the source does for them (its Jacobi sweeps
+    depend on the data, so a launch reports them) over the card's float64
+    rate."""
+    sweeps = torch.zeros(landmarks.shape[0], dtype=torch.int32, device=landmarks.device)
+    head_pose.head_pose_from_landmarks(landmarks, k, iters=iters, sweeps=sweeps)
+    ops = head_pose.operations(landmarks.shape[0], iters, int(sweeps.sum()))
+    return launch + ops / FP64_OPS_PER_S * 1e3
+
+
+def head_pose_errors(landmarks: torch.Tensor, k: torch.Tensor):
+    """(max |rot - plain|, max |center - plain| over max(1 m, |plain center|))
+    of the kernel against its plain version on the same card."""
+    rot, center = head_pose.head_pose_from_landmarks(landmarks, k)
+    ref_rot, ref_center = geometry.head_pose_from_landmarks(landmarks, k)
+    err_rot = float((rot - ref_rot).abs().max())
+    scale = ref_center.norm(dim=-1, keepdim=True).clamp(min=1.0)
+    err_center = float(((center - ref_center).abs() / scale).max())
+    return err_rot, err_center
 
 
 def load_parent(tree: str):
@@ -102,6 +159,17 @@ def main(argv=None) -> int:
             fn = lambda: fused_input.fused_i420_inputs(yuv, h, s)  # noqa: E731
             print(f"[kernel_bench] B={b} {h}x{w} S={s} G={g}: graph {graph_ms(fn):.5f} ms, "
                   f"loop {loop_ms(fn):.5f} ms", flush=True)
+    k = torch.from_numpy(CameraIntrinsics().matrix()).cuda()
+    launch = launch_ms()
+    for b in (1, 8, 16):
+        lms = torch.from_numpy(face_landmarks(b, rng)).cuda()
+        fn = lambda: head_pose.head_pose_from_landmarks(lms, k)  # noqa: E731
+        plain = lambda: geometry.head_pose_from_landmarks(lms, k)  # noqa: E731
+        err_rot, err_center = head_pose_errors(lms, k)
+        print(f"[kernel_bench] head pose B={b}: graph {graph_ms(fn):.5f} ms, plain (host loop, "
+              f"synchronised) {loop_ms(plain, reps=5):.4f} ms, bound {head_pose_bound(lms, k, launch):.5f} "
+              f"ms (launch {launch:.5f} ms), max|err| rot {err_rot:.3g} center {err_center:.3g}",
+              flush=True)
     print(f"[kernel_bench] {torch.cuda.get_device_name(0)}")
     return 0
 

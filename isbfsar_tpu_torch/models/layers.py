@@ -9,6 +9,9 @@
 * :class:`LayerNorm` uses Flax's fast variance ``E[x²] - E[x]²`` and eps 1e-6.
 * :func:`init_random` fills a net with seeded random weights (LeCun normal
   kernels, zero biases, identity normalization), as Flax initializes.
+* :func:`pin_float32_matmul` turns TF32 off for matmuls and cuDNN
+  convolutions (process-wide PyTorch state): where the JAX code computes in
+  float32 (``Precision.HIGHEST``), so must the port.
 """
 
 from __future__ import annotations
@@ -91,3 +94,8 @@ def init_random(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.mean.zero_()
             m.var.fill_(1.0)
     return module
+
+
+def pin_float32_matmul() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

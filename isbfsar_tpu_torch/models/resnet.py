@@ -1,0 +1,76 @@
+"""ResNet-18 trunk (port of ``isbfsar_tpu/models/resnet.py``), NCHW.
+
+The GazeNet backbone of the focus path. Stem: a 7x7 stride-2 convolution
+padded (3, 3), BatchNorm, ReLU and a 3x3/2 max-pool padded (1, 1) with
+-inf, as Flax's ``max_pool`` pads. Then four stages of two
+:class:`BasicBlock` and a global average pool, which returns float32
+features. BatchNorm eps 1e-5. The convolutions compute in ``dtype`` and
+cast their float32 weights to it, as the Flax modules do.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from isbfsar_tpu_torch.models.layers import BatchNorm, Conv
+
+_EPS = 1e-5
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin: int, filters: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv(cin, filters, 3, stride, padding=1, bias=False)
+        self.bn1 = BatchNorm(filters, _EPS)
+        self.conv2 = Conv(filters, filters, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(filters, _EPS)
+        if stride != 1 or cin != filters:
+            self.downsample_conv = Conv(cin, filters, 1, stride, bias=False)
+            self.downsample_bn = BatchNorm(filters, _EPS)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """(b, 3, s, s) -> (b, width * 2**(stages - 1)) float32 pooled features."""
+
+    def __init__(self, stage_sizes: Sequence[int], width: int = 64,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = Conv(3, width, 7, 2, padding=3, bias=False)
+        self.bn1 = BatchNorm(width, _EPS)
+        self.blocks = []
+        cin = width
+        for i, n_blocks in enumerate(stage_sizes):
+            for j in range(n_blocks):
+                stride = 2 if i > 0 and j == 0 else 1
+                name = f"layer{i + 1}_{j}"
+                setattr(self, name, BasicBlock(cin, width * 2**i, stride))
+                self.blocks.append(name)
+                cin = width * 2**i
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        # the mean accumulates in float32 and is rounded to the compute type,
+        # as jnp.mean does for bfloat16
+        return x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).to(torch.float32)
+
+
+def resnet18(dtype: torch.dtype = torch.bfloat16) -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), dtype=dtype)

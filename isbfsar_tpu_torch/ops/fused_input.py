@@ -2,10 +2,10 @@
 
 Port of the TPU kernel ``isbfsar_tpu/ops/pallas_input.py::fused_i420_inputs``
 as the hand-written CUDA kernel ``csrc/fused_i420.cu`` (sm_90a), built with
-nvcc into ``build/isbfsar_tpu_torch/`` beside the package on first use and
-loaded with ctypes. Its bound on an H100 is bytes: 78.9 MB for a batch of
-16 480x640 frames at S = 256, about 23.6 us at 3.35 TB/s (the note at the
-head of the source has the count).
+nvcc into ``build/isbfsar_tpu_torch/`` beside the package on first use
+(``ops/build.py``) and loaded with ctypes. Its bound on an H100 is bytes:
+78.9 MB for a batch of 16 480x640 frames at S = 256, about 23.6 us at
+3.35 TB/s (the note at the head of the source has the count).
 
 The kernel's work item is one frame and one band of G YOLO output rows;
 :func:`band_plan` is the host-side plan of those bands (the source rows
@@ -25,58 +25,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from isbfsar_tpu_torch.ops import build as _build
 from isbfsar_tpu_torch.ops.image import _area_weights, i420_to_bgr, yolo_preprocess
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_i420.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "isbfsar_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-
-class BuildInfo(NamedTuple):
-    path: str
-    seconds: float  # 0.0 when the library for this source was already built
-    log: str  # nvcc's output (ptxas register and spill report)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fused I420 kernel needs the CUDA toolkit")
-    return path
-
-
-def build() -> BuildInfo:
-    """Compile ``csrc/fused_i420.cu`` unless a library of this exact source exists."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libfused_i420-{digest}.so")
-    if os.path.exists(out):
-        return BuildInfo(out, 0.0, "")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return BuildInfo(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+def build() -> _build.BuildInfo:
+    """Compile ``csrc/fused_i420.cu`` of this module's tree unless a library
+    of this exact source exists."""
+    return _build.build("fused_i420", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "csrc"))
 
 
 @functools.lru_cache(maxsize=None)

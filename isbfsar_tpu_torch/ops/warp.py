@@ -1,6 +1,7 @@
-"""Projective crop warp (port of ``isbfsar_tpu/ops/warp.py::warp_image``).
+"""Projective crop warps (port of ``isbfsar_tpu/ops/warp.py``).
 
-For each output pixel (x, y), with H normalized so H[2, 2] == 1,
+``warp_image``, the pose crop: for each output pixel (x, y), with H
+normalized so H[2, 2] == 1,
 
     k  = H20*x + H21*y + 1
     xi = trunc((H00*x + H01*y + H02) / k)
@@ -8,6 +9,9 @@ For each output pixel (x, y), with H normalized so H[2, 2] == 1,
     out[y, x] = img[yi, xi]  if in bounds else 0
 
 Truncation toward zero, not floor, as the reference.
+
+``warp_image_bilinear``, the focus crops: the same source coordinates,
+sampled bilinearly with zeros outside the frame.
 """
 
 from __future__ import annotations
@@ -48,3 +52,56 @@ def warp_image(img: torch.Tensor, transform: torch.Tensor, out_size: int = 256) 
     out = torch.gather(flat, 1, flat_idx.reshape(b, -1, 1).expand(-1, -1, c).long())
     out = out.reshape(b, out_size, out_size, c)
     return torch.where(in_bounds[..., None], out, torch.zeros((), dtype=img.dtype, device=img.device))
+
+
+def warp_image_bilinear(img: torch.Tensor, transform: torch.Tensor, out_size: int = 256,
+                        packed: bool = True) -> torch.Tensor:
+    """Bilinear projective warp, one transform per frame.
+
+    img (b, h, w, c), transform (b, 3, 3) output->source homographies.
+    Returns (b, out_size, out_size, c) float32; each corner outside the
+    frame reads 0. ``packed=True`` (the default) gathers the four corners
+    at once from a 1-px zero-padded copy whose channels hold each pixel's
+    2x2 block, with a mask for sample points with no support
+    (outside [-1, w] x [-1, h]); ``packed=False`` gathers each corner
+    separately. The two give the same values.
+    """
+    b, h, w, c = img.shape
+    sx, sy = _source_coords(transform.to(torch.float32), out_size, out_size)
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = (sx - x0)[..., None]
+    fy = (sy - y0)[..., None]
+    x0i, y0i = to_int32(x0), to_int32(y0)
+    zero = torch.zeros((), dtype=torch.float32, device=img.device)
+
+    def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """table (b, n, k), idx (b, s, s) -> (b, s, s, k)."""
+        k = table.shape[-1]
+        out = torch.gather(table, 1, idx.reshape(b, -1, 1).expand(-1, -1, k).long())
+        return out.reshape(b, out_size, out_size, k)
+
+    if not packed:
+        flat = img.to(torch.float32).reshape(b, h * w, c)
+
+        def fetch(xi, yi):
+            ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            vals = gather(flat, yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+            return torch.where(ok[..., None], vals, zero)
+
+        v00, v01 = fetch(x0i, y0i), fetch(x0i + 1, y0i)
+        v10, v11 = fetch(x0i, y0i + 1), fetch(x0i + 1, y0i + 1)
+    else:
+        padded = torch.nn.functional.pad(img.to(torch.float32), (0, 0, 1, 1, 1, 1))
+        # pack[y, x] holds the 2x2 block whose top-left pixel is (y - 1, x - 1)
+        pack = torch.cat([padded[:, :-1, :-1], padded[:, :-1, 1:],
+                          padded[:, 1:, :-1], padded[:, 1:, 1:]], dim=-1)
+        support = (sx >= -1.0) & (sx <= w) & (sy >= -1.0) & (sy <= h)
+        px = (x0i + 1).clamp(0, w)
+        py = (y0i + 1).clamp(0, h)
+        corners = gather(pack.reshape(b, (h + 1) * (w + 1), 4 * c), py * (w + 1) + px)
+        corners = torch.where(support[..., None], corners, zero)
+        v00, v01, v10, v11 = corners.split(c, dim=-1)
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    return top * (1 - fy) + bot * fy

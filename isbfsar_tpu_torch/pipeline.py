@@ -1,4 +1,4 @@
-"""FusedPipeline, skeleton mode without focus, I420 input (port of
+"""FusedPipeline, skeleton mode with focus, I420 input (port of
 ``isbfsar_tpu/pipeline.py``).
 
 Per frame:
@@ -8,7 +8,11 @@ Per frame:
     heatmap head -> soft-argmax -> absolute reconstruction -> joint
     mapping -> root-centering -> One-Euro smoothing -> skeleton embed ->
     feature-ring push -> TRX match vs the cached support K/V ->
-    softmax scores + open-set decision -> one packed float32 vector.
+    softmax scores + open-set decision;
+    focus on the unrounded float BGR frame (focus/detector.py: face
+    detection, landmarks, head pose by the CUDA kernel of
+    ops/head_pose.py, the normalized crop, gaze) -> one packed float32
+    vector.
 
 The JAX package runs one frame in ``_step_impl`` and vmaps it in
 ``_step_batch_impl``; here both are the same batched code, the per-frame
@@ -32,6 +36,9 @@ eagerly.
 The convolutions and matmuls must run in full float32 where the JAX code
 does (``Precision.HIGHEST``), so the constructor turns TF32 off for
 matmuls and cuDNN convolutions. It is process-wide PyTorch state.
+
+``with_focus=True`` is the default, as in the JAX package; the focus nets
+keep their float32 weights whatever ``param_dtype`` says, as there.
 """
 
 from __future__ import annotations
@@ -44,9 +51,11 @@ import torch
 
 from isbfsar_tpu_torch.ar.recognizer import ActionRecognizer
 from isbfsar_tpu_torch.configs import PipelineConfig
+from isbfsar_tpu_torch.focus.detector import FocusDetector
 from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
-from isbfsar_tpu_torch.models.layers import BatchNorm
+from isbfsar_tpu_torch.models.layers import BatchNorm, pin_float32_matmul
 from isbfsar_tpu_torch.ops.fused_input import fused_i420_inputs
+from isbfsar_tpu_torch.ops.head_pose import head_pose_from_landmarks
 from isbfsar_tpu_torch.ops.smooth import one_euro_gated_state, one_euro_gated_step
 
 
@@ -81,6 +90,23 @@ class _Layout:
             v = vec[start:end]
             out[name] = v.reshape(shape) if shape else v[0]
         return out
+
+
+# the hand kernels' wrappers, whose launch counts graph replays add to
+KERNELS = (fused_i420_inputs, head_pose_from_landmarks)
+
+# the packed focus fields in the JAX order: (the detector output each holds, shape)
+FOCUS_FIELDS = {
+    "f_found": ("found", ()),
+    "f_score": ("score", ()),
+    "f_bbox": ("bbox", (4,)),
+    "f_landmarks": ("landmarks", (6, 2)),
+    "f_head_position": ("head_position", (3,)),
+    "f_head_rotvec": ("head_rotvec", (3,)),
+    "f_norm_head_rot2d": ("normalized_head_rot2d", (2,)),
+    "f_gaze": ("gaze_vector", (3,)),
+    "f_norm_gaze": ("normalized_gaze_vector", (3,)),
+}
 
 
 def _is_trunk(name: str) -> bool:
@@ -120,18 +146,14 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
-def pin_float32_matmul() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 class FusedPipeline:
     def __init__(
         self,
         config: Optional[PipelineConfig] = None,
         hpe: Optional[HumanPoseEstimator] = None,
         ar: Optional[ActionRecognizer] = None,
-        with_focus: bool = False,
+        focus: Optional[FocusDetector] = None,
+        with_focus: bool = True,
         input_format: str = "i420",
         device: str = "cuda",
         cuda_graphs: Optional[bool] = None,
@@ -141,8 +163,6 @@ class FusedPipeline:
         eagerly. On the CPU the default is the plain eager step, and True
         runs the static-buffer step eagerly."""
         self.config = config or PipelineConfig()
-        if with_focus:
-            raise NotImplementedError("focus is not ported yet")
         if input_format != "i420":
             raise NotImplementedError("the port takes I420 frames only")
         if self.config.main.input_type != "skeleton":
@@ -157,8 +177,12 @@ class FusedPipeline:
         self.hpe = hpe or HumanPoseEstimator(self.config.hpe, self.config.intrinsics,
                                              frame_shape=cam_shape, device=device)
         self.ar = ar or ActionRecognizer(self.config.ar, device=device)
+        self.with_focus = with_focus
+        self.focus = (focus or FocusDetector(self.config.focus, self.config.intrinsics,
+                                             frame_shape=cam_shape, device=device)
+                      ) if with_focus else None
         cfg = self.config.ar
-        self.layout = _Layout({
+        fields = {
             "pose": (cfg.n_joints, 3),
             "pose_abs": (cfg.n_joints, 3),
             "bbox": (4,),
@@ -168,7 +192,10 @@ class FusedPipeline:
             "probs": (cfg.way,),
             "is_true": (),
             "ar_ready": (),
-        })
+        }
+        if with_focus:
+            fields.update({name: shape for name, (_, shape) in FOCUS_FIELDS.items()})
+        self.layout = _Layout(fields)
 
     # -------------------------------------------------------------- factory
 
@@ -189,6 +216,8 @@ class FusedPipeline:
             if self.config.param_dtype != "float32":
                 nets = _cast_trunk_params(nets, getattr(torch, self.config.param_dtype))
             self._device_params = {"hpe": nets, "ar": self.ar.model}
+            if self.with_focus:
+                self._device_params["focus"] = self.focus.nets
         return self._device_params
 
     # ------------------------------------------------------------ the step
@@ -252,6 +281,10 @@ class FusedPipeline:
             "is_true": is_true,
             "ar_ready": ar_ready,
         }
+        if self.with_focus:
+            # the unrounded float frames: focus does not round, the estimator does
+            f = self.focus._forward_impl(params["focus"], frames)
+            values.update({name: f[key] for name, (key, _) in FOCUS_FIELDS.items()})
         new_state = StreamState(window=window, n_valid=n_valid, smooth=smooth_state)
         return self.layout.pack(values, b), new_state
 
@@ -365,6 +398,12 @@ class FusedPipeline:
             elements["actions"] = {}
             elements["is_true"] = 0
             elements["requires_focus"] = {}
+        if self.with_focus and outputs["f_found"] > 0:
+            focus_out = {key: outputs[name] for name, (key, _) in FOCUS_FIELDS.items()}
+            res = self.focus.estimate_collect(focus_out)
+            if res is not None:
+                elements["focus"], face = res
+                elements["face_bbox"] = face.bbox.reshape(-1)
         return elements
 
 
@@ -388,7 +427,7 @@ class _StepGraph:
             self.uploaded = torch.cuda.Event()
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
-        self.kernel_launches = 0  # fused-kernel launches recorded in the graph
+        self.launches = {kernel: 0 for kernel in KERNELS}  # launches recorded in the graph
 
     def _body(self) -> torch.Tensor:
         p = self.pipe
@@ -409,7 +448,8 @@ class _StepGraph:
             self.frames.copy_(torch.from_numpy(frames))
         if self.graph is not None:
             self.graph.replay()
-            fused_i420_inputs.launches += self.kernel_launches
+            for kernel, n in self.launches.items():
+                kernel.launches += n
             return self.out.clone()  # the next replay overwrites the static output
         packed = self._body()
         if self.on_card:
@@ -417,11 +457,12 @@ class _StepGraph:
         return packed
 
     def _capture(self) -> None:
-        before = fused_i420_inputs.launches
+        before = {kernel: kernel.launches for kernel in KERNELS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.out = self._body()
         # capture records the launches and runs none of them
-        self.kernel_launches = fused_i420_inputs.launches - before
-        fused_i420_inputs.launches = before
+        for kernel, n in before.items():
+            self.launches[kernel] = kernel.launches - n
+            kernel.launches = n
         self.graph = graph

@@ -4,27 +4,31 @@
 
 ``build_slice`` is the slice that ``chip_smoke.py`` drives and this module
 profiles: 640x480 I420, YOLOv4 @ 256, EfficientNetV2-L @ 256 crop, bf16,
-the 0.3 detector gate, two random support actions. Its detector is the
-calibrated production one (the ``pose-prod-256-calib`` bundle entry, which
-holds the YOLO branch alone); EfficientNetV2-L and the MeTRAbs head are
-random from a seed, because the 351 MB ``pose-prod-256`` base does not fit
-the card machine's copy of the repo. A missing bundle file raises.
-``build_ci`` is the trained CI operating point (``pose-ci-motions``) at
-240x320 in float32, and ``ci_frames`` the smoke frames at its size.
+the 0.3 detector gate, two random support actions, and with focus on
+(``FocusConfig()``: gaze crop 224, bf16) the trained ``focus-ci`` nets.
+Its detector is the calibrated production one (the ``pose-prod-256-calib``
+bundle entry, which holds the YOLO branch alone); EfficientNetV2-L and the
+MeTRAbs head are random from a seed, because the 351 MB ``pose-prod-256``
+base does not fit the card machine's copy of the repo. A missing bundle
+file raises. ``build_ci`` is the trained CI operating point
+(``pose-ci-motions``, and ``focus-ci`` at ``CI_FOCUS_CFG`` with focus on)
+at 240x320 in float32, and ``ci_frames`` the smoke frames at its size,
+with the committed face frames when asked.
 
-Run as a script, it warms the slice up on the smoke frames, then profiles
-``FusedPipeline.step`` over ``--steps`` frames and one ``stream_batched``
-batch of 16 with ``torch.profiler``, with CUDA graphs and eagerly. For
-each window it prints the host wall time per frame, the device kernel time
-per frame, the device busy share (kernel time over wall time), the kernel
-launches per frame and the kernels that take the most device time. Needs
-a CUDA device.
+Run as a script, it warms the slice up on the smoke and face frames, then
+profiles ``FusedPipeline.step`` over ``--steps`` frames and one
+``stream_batched`` batch of 16 with ``torch.profiler``, with CUDA graphs
+and eagerly, with focus on and then off. For each window it prints the
+host wall time per frame, the device kernel time per frame, the device
+busy share (kernel time over wall time), the kernel launches per frame and
+the kernels that take the most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import os
 import sys
 import time
@@ -35,14 +39,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from isbfsar_tpu_torch import weights
 from isbfsar_tpu_torch.ar.recognizer import ActionRecognizer
-from isbfsar_tpu_torch.configs import CameraIntrinsics, HPEConfig, MainConfig, PipelineConfig
+from isbfsar_tpu_torch.configs import (CameraIntrinsics, FocusConfig, HPEConfig, MainConfig,
+                                       PipelineConfig)
+from isbfsar_tpu_torch.focus.detector import FocusDetector
 from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
 from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
 from isbfsar_tpu_torch.ops.image import bgr_to_i420, i420_to_bgr, resize_area
 from isbfsar_tpu_torch.pipeline import FusedPipeline
 
-SMOKE_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
-                            "smoke_frames.npz")
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+SMOKE_FRAMES = os.path.join(ASSETS, "smoke_frames.npz")
+FOCUS_FRAMES = os.path.join(ASSETS, "focus_frames.npz")
 
 
 def smoke_frames() -> list:
@@ -50,6 +57,23 @@ def smoke_frames() -> list:
     says how they were made), on which the calibrated detector fires."""
     with np.load(SMOKE_FRAMES) as f:
         return list(f["i420"])
+
+
+def focus_frames(height: int = 480) -> dict:
+    """Five rendered faces (README.md says how they were made): close
+    (area 0.12) and far (0.02), head yaw 0 and 1.0, and one close face
+    looking off camera, as I420 frames at 480x640 (``height=480``) or at
+    the CI stack's 240x320 (``height=240``), with their true landmarks in
+    pixels. Returns {"i420": list, "landmarks": (5, 6, 2) float32}."""
+    with np.load(FOCUS_FRAMES) as f:
+        return {"i420": list(f[f"i420_{height}"]), "landmarks": f[f"landmarks_{height}"]}
+
+
+def slice_frames() -> list:
+    """The smoke frames and the 480x640 face frames, interleaved: the pose
+    detector fires on the former, the face detector on the latter."""
+    smoke, faces = smoke_frames(), focus_frames(480)["i420"]
+    return [f for pair in zip(smoke, faces) for f in pair] + faces[len(smoke):]
 
 
 def train_support(pipe: FusedPipeline, seed: int = 0) -> None:
@@ -62,53 +86,69 @@ def train_support(pipe: FusedPipeline, seed: int = 0) -> None:
     pipe.start()
 
 
-def build_slice(seed: int = 0, cuda_graphs: bool = True) -> FusedPipeline:
+def build_slice(seed: int = 0, cuda_graphs: bool = True, with_focus: bool = True) -> FusedPipeline:
     """The full-width slice on the card (see the module docstring)."""
     config = PipelineConfig()
     hpe = HumanPoseEstimator(config.hpe, config.intrinsics, seed=seed)
     delta = weights.load_bundle("pose-prod-256-calib")
     hpe.nets["yolo"].load_state_dict(weights.convert_variables(delta["yolo"]), strict=True)
-    pipe = FusedPipeline(config, hpe=hpe, cuda_graphs=cuda_graphs)
+    focus = FocusDetector(config.focus, config.intrinsics, params=weights.load_bundle("focus-ci")
+                          ) if with_focus else None
+    pipe = FusedPipeline(config, hpe=hpe, focus=focus, with_focus=with_focus,
+                         cuda_graphs=cuda_graphs)
     train_support(pipe)
     return pipe
 
 
-def twin(pipe: FusedPipeline, cuda_graphs: bool) -> FusedPipeline:
-    """A second pipeline on the same nets and support set, eager or with graphs."""
-    other = FusedPipeline(pipe.config, hpe=pipe.hpe, ar=pipe.ar, device=str(pipe.device),
-                          cuda_graphs=cuda_graphs)
+def twin(pipe: FusedPipeline, cuda_graphs: bool, with_focus=None) -> FusedPipeline:
+    """A second pipeline on the same nets and support set, eager or with
+    graphs, with focus as ``pipe`` has it unless ``with_focus`` says."""
+    with_focus = pipe.with_focus if with_focus is None else with_focus
+    other = FusedPipeline(pipe.config, hpe=pipe.hpe, ar=pipe.ar, focus=pipe.focus,
+                          with_focus=with_focus, device=str(pipe.device), cuda_graphs=cuda_graphs)
     other.start()
     return other
 
 
 CI_SHAPE = (240, 320)
+CI_INTRINSICS = CameraIntrinsics(fx=192.0, fy=192.0, ppx=160.0, ppy=120.0, width=320, height=240)
+# the focus nets' CI operating point: the same nets, a 64 crop, float32
+CI_FOCUS_CFG = dataclasses.replace(FocusConfig(), gaze_image_size=64, compute_dtype="float32")
 
 
-def ci_frames(n: int = 18) -> list:
+def ci_frames(n: int = 18, faces: bool = False) -> list:
     """The smoke frames at the CI stack's 240x320, cycled to ``n``: decoded,
     INTER_AREA-halved (a 640x480 render at fx=384 is a 320x240 render at
-    fx=192) and re-encoded."""
+    fx=192) and re-encoded. ``faces=True`` interleaves the 240x320 face
+    frames with them before cycling."""
     out = []
     for yuv in smoke_frames():
         bgr = resize_area(i420_to_bgr(torch.from_numpy(yuv), 480), *CI_SHAPE)
         out.append(bgr_to_i420(torch.round(bgr).to(torch.uint8).numpy()))
+    if faces:
+        face = focus_frames(240)["i420"]
+        out = [f for pair in zip(out, face) for f in pair] + face[len(out):]
     return [out[i % len(out)] for i in range(n)]
 
 
-def build_ci(device: str = "cuda", cuda_graphs=None, params=None) -> FusedPipeline:
+def build_ci(device: str = "cuda", cuda_graphs=None, params=None, with_focus: bool = True,
+             focus_params=None) -> FusedPipeline:
     """The trained CI operating point (pose-ci-motions: V2_TINY, YOLO width
     0.25 at 128, crop 128, 240x320, float32, gate 0.3) with two random
-    support actions."""
+    support actions; with focus, ``focus-ci`` at ``CI_FOCUS_CFG``."""
     h, w = CI_SHAPE
     hcfg = HPEConfig(yolo_input_size=128, crop_size=128, yolo_thresh=0.3, compute_dtype="float32")
-    intr = CameraIntrinsics(fx=192.0, fy=192.0, ppx=160.0, ppy=120.0, width=w, height=h)
+    intr = CI_INTRINSICS
     cfg = PipelineConfig(main=MainConfig(cam_width=w, cam_height=h), intrinsics=intr, hpe=hcfg,
-                         param_dtype="float32")
+                         focus=CI_FOCUS_CFG, param_dtype="float32")
     hpe = HumanPoseEstimator(hcfg, intr, params=params or weights.load_bundle("pose-ci-motions"),
                              backbone_stages=V2_TINY, frame_shape=CI_SHAPE, yolo_width=0.25,
                              device=device)
+    focus = FocusDetector(CI_FOCUS_CFG, intr, params=focus_params or weights.load_bundle("focus-ci"),
+                          frame_shape=CI_SHAPE, device=device) if with_focus else None
     pipe = FusedPipeline(cfg, hpe=hpe, ar=ActionRecognizer(cfg.ar, seed=1, device=device),
-                         device=device, cuda_graphs=cuda_graphs)
+                         focus=focus, with_focus=with_focus, device=device,
+                         cuda_graphs=cuda_graphs)
     train_support(pipe)
     return pipe
 
@@ -117,7 +157,9 @@ def _device_events(prof):
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12) -> None:
+def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12):
+    """Prints the window's numbers and top kernels; returns (device ms per
+    frame, kernels per frame)."""
     events = _device_events(prof)
     if not events:
         raise RuntimeError("the profiler recorded no device time")
@@ -132,21 +174,29 @@ def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12) -> Non
     for kname, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[{name}]   {us / busy_us * 100:5.1f}%  {us / n_frames / 1e3:8.4f} ms/frame  "
               f"x{count / n_frames:.0f}  {kname[:110]}")
+    return busy_us / n_frames / 1e3, len(events) / n_frames
 
 
-def _profile(name: str, pipe: FusedPipeline, frames: list, steps: int, trace: str = "") -> None:
-    for f in frames[:3]:  # warm-up; with graphs, also the B=1 and B=16 captures
-        pipe.step(f)
-    list(pipe.stream_batched(frames, 16))
+def profile_steps(name: str, pipe: FusedPipeline, frames: list, steps: int, top: int = 12,
+                  trace: str = ""):
+    """``torch.profiler`` over ``steps`` synchronous steps of a warmed-up
+    pipeline; returns (device ms per frame, kernels per frame)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for f in frames[:steps]:
             pipe.step(f)
         wall = time.perf_counter() - t
-    _report(f"{name} step B=1", prof, wall, steps)
     if trace:
         prof.export_chrome_trace(trace)
+    return _report(f"{name} step B=1", prof, wall, steps, top)
+
+
+def _profile(name: str, pipe: FusedPipeline, frames: list, steps: int, trace: str = "") -> None:
+    for f in frames[:3]:  # warm-up; with graphs, also the B=1 and B=16 captures
+        pipe.step(f)
+    list(pipe.stream_batched(frames, 16))
+    profile_steps(name, pipe, frames, steps, trace=trace)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         list(pipe.stream_batched(frames, 16))
@@ -163,10 +213,12 @@ def main(argv=None) -> int:
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
     pipe = build_slice()
-    clip = smoke_frames()
+    clip = slice_frames()
     frames = [clip[i % len(clip)] for i in range(16)]
     _profile("graphs", pipe, frames, args.steps, args.trace)
     _profile("eager", twin(pipe, cuda_graphs=False), frames, args.steps)
+    _profile("graphs, focus off", twin(pipe, cuda_graphs=True, with_focus=False), frames,
+             args.steps)
     print(f"[profile] {torch.cuda.get_device_name(0)}")
     return 0
 

@@ -2,11 +2,14 @@
 
     python3 -m isbfsar_tpu_torch.stage_trace [--batch 8] [--cudnn-deterministic]
 
-The trained CI stack (``profile_slice.build_ci``: pose-ci-motions, float32,
-240x320) runs the same ``--batch`` frames eagerly once as one batch and
-once frame by frame. Stage by stage (fused input, raw YOLO outputs, box,
-homography, crop, trunk features, head logits, 2D decode, absolute 3D,
-pose, the skeleton embedding and the TRX logits), it prints the largest
+The trained CI stack (``profile_slice.build_ci``: pose-ci-motions and
+focus-ci, float32, 240x320) runs the same ``--batch`` frames (smoke and
+face frames) eagerly once as one batch and once frame by frame. Stage by
+stage (fused input, raw YOLO outputs, box, homography, crop, trunk
+features, head logits, 2D decode, absolute 3D, pose, the skeleton
+embedding, then the focus stages: the face detector's input and scores,
+the face box, the landmark crop and landmarks, the head pose, the gaze
+warp, crop and pitch/yaw, and last the TRX logits), it prints the largest
 absolute difference between the two and names the first stage that
 differs. The last line is a JSON object of the same readings.
 ``--cudnn-deterministic`` sets ``torch.backends.cudnn.deterministic``
@@ -35,6 +38,8 @@ def trace(pipe, frames: np.ndarray) -> dict:
     pose = pipe.hpe._estimate_impl(nets["hpe"], bgr, yolo_in, stages)[0]
     rel = pose - pose[:, :1]
     stages["features"] = nets["ar"].embed_frame(rel.reshape(rel.shape[0], -1))
+    if pipe.with_focus:
+        pipe.focus._forward_impl(nets["focus"], bgr, stages)
     return stages
 
 
@@ -58,7 +63,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cudnn.deterministic = args.cudnn_deterministic
     pipe = build_ci("cuda", cuda_graphs=False)
-    frames = np.stack(ci_frames(args.batch))
+    frames = np.stack(ci_frames(args.batch, faces=True))
     batched = trace(pipe, frames)
     single = [trace(pipe, frames[i:i + 1]) for i in range(args.batch)]
     one = {key: torch.cat([s[key] for s in single]) for key in batched}

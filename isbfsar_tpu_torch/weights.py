@@ -10,7 +10,7 @@ ml_dtypes): bfloat16 leaves are read as 16-bit integers and viewed as
 Conversion runs at load time, in memory; nothing converted is written
 anywhere. Flax layouts map to the port's modules as:
 
-* conv kernel HWIO -> weight OIHW (depthwise (3, 3, 1, C) -> (C, 1, 3, 3));
+* conv kernel HWIO -> weight OIHW (depthwise (k, k, 1, C) -> (C, 1, k, k));
 * dense kernel (in, out) -> weight (out, in);
 * BatchNorm ``scale``/``bias`` params and ``mean``/``var`` batch stats keep
   their names (the port's BatchNorm uses Flax's names);
@@ -210,3 +210,9 @@ def convert_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
 def convert_pose_stack(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     """A pose-stack bundle ``{"yolo", "bbone", "head"}`` -> state dicts."""
     return {k: convert_variables(params[k]) for k in ("yolo", "bbone", "head")}
+
+
+def convert_focus(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A focus bundle ``{"face_det", "lm_refiner", "gaze_net"}`` (``focus-ci``)
+    -> state dicts of ``BlazeFaceLite``, ``LandmarkRefiner`` and ``GazeNet``."""
+    return {k: convert_variables(params[k]) for k in ("face_det", "lm_refiner", "gaze_net")}

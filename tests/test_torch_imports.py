@@ -2,7 +2,9 @@
 lacks: no jax, jaxlib, flax, optax, msgpack, ml_dtypes, cv2 or triton, and
 nothing of the JAX package ``isbfsar_tpu``. A subprocess refuses those
 imports, imports every module of the port and chip_smoke, and runs the
-slice on the CPU for one frame at CI size with seeded torch weights."""
+slice with focus on the CPU for one frame at CI size, with seeded torch
+weights for the pose stack and the focus-ci bundle read by the port's own
+decoder."""
 
 import os
 import subprocess
@@ -33,24 +35,32 @@ SCRIPT = textwrap.dedent(r"""
     import chip_smoke  # noqa: F401  (main() is not run)
 
     import numpy as np
+    from isbfsar_tpu_torch import weights
     from isbfsar_tpu_torch.configs import CameraIntrinsics, HPEConfig, MainConfig, PipelineConfig
+    from isbfsar_tpu_torch.focus.detector import FocusDetector
     from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
     from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
     from isbfsar_tpu_torch.ops.image import bgr_to_i420
     from isbfsar_tpu_torch.pipeline import FusedPipeline
+    from isbfsar_tpu_torch.profile_slice import CI_FOCUS_CFG
 
     hpe_cfg = HPEConfig(yolo_input_size=128, crop_size=256, yolo_thresh=0.0, compute_dtype="float32")
     intr = CameraIntrinsics(width=160, height=120)
     cfg = PipelineConfig(main=MainConfig(cam_width=160, cam_height=120), intrinsics=intr, hpe=hpe_cfg)
     hpe = HumanPoseEstimator(hpe_cfg, intr, seed=0, backbone_stages=V2_TINY, frame_shape=(120, 160),
                              yolo_width=0.25, device="cpu")
-    pipe = FusedPipeline(cfg, hpe=hpe, device="cpu")
+    focus = FocusDetector(CI_FOCUS_CFG, intr, params=weights.load_bundle("focus-ci"),
+                          frame_shape=(120, 160), device="cpu")
+    pipe = FusedPipeline(cfg, hpe=hpe, focus=focus, device="cpu")
     pipe.ar.train({"flag": "wave", "data": {"poses": np.ones((16, 90), np.float32)}})
     pipe.start()
     frame = bgr_to_i420(np.random.default_rng(0).integers(0, 256, (120, 160, 3), np.uint8))
     out = pipe.step(frame)
     assert out["pose"].shape == (30, 3) and np.isfinite(out["pose_abs"]).all()
     assert out["pose_ok"] in (0.0, 1.0) and abs(out["probs"].sum() - 1.0) < 1e-5
+    assert out["f_found"] in (0.0, 1.0) and out["f_landmarks"].shape == (6, 2)
+    assert all(np.isfinite(out[k]).all() for k in out if k.startswith("f_"))
+    pipe.decode(out)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))

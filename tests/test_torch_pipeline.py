@@ -1,6 +1,7 @@
 """The whole slice of the PyTorch port against the JAX FusedPipeline.
 
-I420 frame -> pose -> TRX match, skeleton mode, no focus, on the CPU in
+I420 frame -> pose -> TRX match, skeleton mode, focus off (passed
+explicitly; tests/test_torch_pipeline_focus.py runs focus), on the CPU in
 float32. The same weights (JAX-initialized or the trained ``pose-ci-motions``
 bundle, carried across with the weight bridge) and the same frames go
 through both pipelines; their packed vectors are compared field by field,
@@ -69,7 +70,7 @@ def _build(hw, jax_intr, hpe_kw, params, stages_yolo):
                         hpe=jhpe, ar=jar, with_focus=False, input_format="i420")
     pipe = FusedPipeline(tc.PipelineConfig(main=tc.MainConfig(cam_width=w, cam_height=h),
                                            intrinsics=intr, hpe=thpe_cfg, param_dtype="float32"),
-                         hpe=thpe, ar=ar, device="cpu")
+                         hpe=thpe, ar=ar, with_focus=False, device="cpu")
     return jpipe, pipe
 
 
@@ -132,7 +133,8 @@ def test_static_buffer_step_equals_plain_step(trained_ci):
     frames at batch sizes 1 and 4, across a ``start()`` after a support
     edit, bit-equal. The buffers are written in place, never replaced."""
     pipe, frames, _, _ = trained_ci
-    static = FusedPipeline(pipe.config, hpe=pipe.hpe, ar=pipe.ar, device="cpu", cuda_graphs=True)
+    static = FusedPipeline(pipe.config, hpe=pipe.hpe, ar=pipe.ar, with_focus=False, device="cpu",
+                           cuda_graphs=True)
     assert not pipe.cuda_graphs and static.cuda_graphs
 
     def run(p):
