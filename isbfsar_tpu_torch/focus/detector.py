@@ -3,9 +3,10 @@ of ``isbfsar_tpu/focus/detector.py``).
 
 Per frame: BlazeFaceLite on the frame resized to 128x128, a score-weighted
 box over the eight best anchors, the landmark refiner on a 64x64 crop of
-that box, head pose from the six landmarks (the CUDA kernel of
-``ops/head_pose.py`` on the card), the ETH-XGaze normalization camera, a
-bilinear warp to the normalized crop, and GazeNet's pitch and yaw.
+that box, head pose from the six landmarks and the ETH-XGaze
+normalization camera (one launch of the CUDA kernel of
+``ops/head_pose.py`` on the card), a bilinear warp to the normalized crop,
+and GazeNet's pitch and yaw.
 :meth:`FocusDetector._forward_impl` runs all of it batched over frames and
 reads nothing back to the host, so the pipeline's CUDA graph holds it.
 
@@ -31,11 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from isbfsar_tpu_torch.configs import CameraIntrinsics, FocusConfig
-from isbfsar_tpu_torch.focus.geometry import denormalize_gaze, normalization_camera, rotmat_to_rotvec
+from isbfsar_tpu_torch.focus.geometry import denormalize_gaze
 from isbfsar_tpu_torch.models.gaze import BlazeFaceLite, GazeNet, LandmarkRefiner, pitchyaw_to_vector
 from isbfsar_tpu_torch.models.layers import init_random, pin_float32_matmul
-from isbfsar_tpu_torch.ops.geometry import mm
-from isbfsar_tpu_torch.ops.head_pose import head_pose_from_landmarks
+from isbfsar_tpu_torch.ops.head_pose import focus_geometry
 from isbfsar_tpu_torch.ops.warp import warp_image_bilinear
 from isbfsar_tpu_torch.weights import convert_focus
 
@@ -149,31 +149,26 @@ class FocusDetector:
         ref = nets["lm_refiner"]((lm_crop.flip(-1) / 255.0).permute(0, 3, 1, 2))  # (B, 6, 2)
         landmarks = ref * side[:, None, None] + torch.stack([x0, y0], dim=-1)[:, None, :]
 
-        rot, center = head_pose_from_landmarks(landmarks.contiguous(), self.k_matrix,
-                                               cfg.normalized_camera_distance)
-        rotvec = rotmat_to_rotvec(rot)
-
-        warp, r_norm = normalization_camera(center, self.k_matrix, cfg.normalized_camera_distance,
-                                            size)
-        crop = warp_image_bilinear(frames, warp, size)
+        # head pose, its rotation vector, the normalization camera and the
+        # head's rotation in it
+        geo = focus_geometry(landmarks.contiguous(), self.k_matrix, cfg.normalized_camera_distance,
+                             cfg.normalized_camera_distance, size)
+        crop = warp_image_bilinear(frames, geo.warp, size)
         pitchyaw = nets["gaze_net"]((crop.flip(-1) / 255.0).permute(0, 3, 1, 2))
         norm_gaze = pitchyaw_to_vector(pitchyaw)
-        gaze = denormalize_gaze(norm_gaze, r_norm)
+        gaze = denormalize_gaze(norm_gaze, geo.r_norm)
         if stages is not None:
             stages.update(face_in=det_in, face_scores=scores, face_box=box, lm_crop=lm_crop,
-                          landmarks=landmarks, head_rot=rot, head_center=center, gaze_warp=warp,
-                          gaze_crop=crop, pitchyaw=pitchyaw)
-
-        # the head pose in the normalized camera, reduced to rotvec xy
-        head_rot2d = rotmat_to_rotvec(mm(r_norm, rot))[:, :2]
+                          landmarks=landmarks, head_rot=geo.rot, head_center=geo.center,
+                          gaze_warp=geo.warp, gaze_crop=crop, pitchyaw=pitchyaw)
         return {
             "found": score > 0.5,
             "score": score,
             "bbox": box,
             "landmarks": landmarks,
-            "head_position": center,
-            "head_rotvec": rotvec,
-            "normalized_head_rot2d": head_rot2d,
+            "head_position": geo.center,
+            "head_rotvec": geo.rotvec,
+            "normalized_head_rot2d": geo.head_rot2d,
             "gaze_vector": gaze,
             "normalized_gaze_vector": norm_gaze,
             "normalized_image": crop,

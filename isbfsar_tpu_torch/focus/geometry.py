@@ -4,15 +4,18 @@ Head pose from six landmarks by an iterative weak-perspective PnP,
 ETH-XGaze-style camera normalization, and the rotation helpers of the
 focus heuristics. Batched over a leading frame axis.
 
-The functions the focus step runs on the card (``rotmat_to_rotvec``,
-``normalization_camera``, ``denormalize_gaze``) are elementwise chains:
-a CUDA graph cannot hold ``torch.linalg.inv``, ``det`` or ``svd``, which
-wait for the host on CUDA. The 3x3 inverse is taken by cofactors, and the
-products, norms and cross products are those of ``ops/geometry.py``.
+``rotmat_to_rotvec``, ``normalization_camera`` and ``denormalize_gaze``
+are elementwise chains: a CUDA graph cannot hold ``torch.linalg.inv``,
+``det`` or ``svd``, which wait for the host on CUDA. The 3x3 inverse is
+taken by cofactors, and the products, norms and cross products are those
+of ``ops/geometry.py``.
 
-:func:`head_pose_from_landmarks` here is the plain version of the CUDA
-kernel in ``ops/head_pose.py``: it serves CPU tensors and is the kernel's
-oracle on the card, outside any graph.
+:func:`head_pose_from_landmarks` here, followed by ``rotmat_to_rotvec``
+and ``normalization_camera``, is the plain version of the CUDA kernel in
+``ops/head_pose.py`` (``focus_geometry_reference`` there composes them):
+it serves CPU tensors and is the kernel's oracle on the card, outside any
+graph. On the card the focus step runs the kernel and calls
+``denormalize_gaze`` alone from here.
 """
 
 from __future__ import annotations
@@ -160,6 +163,12 @@ def inv3(m: torch.Tensor) -> torch.Tensor:
     return co / det[..., None, None]
 
 
+def focal_length(out_size: int) -> float:
+    """The normalized camera's default focal length: 960 at a 224 crop,
+    scaled with the crop (ETH-XGaze's face convention)."""
+    return 960.0 * out_size / 224.0
+
+
 def normalization_camera(face_center: torch.Tensor, intrinsics: torch.Tensor,
                          norm_distance: float = 0.6, out_size: int = 224,
                          focal_norm: float = None):
@@ -171,7 +180,7 @@ def normalization_camera(face_center: torch.Tensor, intrinsics: torch.Tensor,
     the focal length defaults to 960 at a 224 crop, scaled with ``out_size``.
     """
     if focal_norm is None:
-        focal_norm = 960.0 * out_size / 224.0
+        focal_norm = focal_length(out_size)
     z_axis = face_center / norm(face_center, keepdim=True)
     down = torch.zeros_like(z_axis)
     down[..., 1] = 1.0

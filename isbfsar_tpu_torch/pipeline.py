@@ -10,9 +10,9 @@ Per frame:
     feature-ring push -> TRX match vs the cached support K/V ->
     softmax scores + open-set decision;
     focus on the unrounded float BGR frame (focus/detector.py: face
-    detection, landmarks, head pose by the CUDA kernel of
-    ops/head_pose.py, the normalized crop, gaze) -> one packed float32
-    vector.
+    detection, landmarks, head pose and the normalization camera by the
+    CUDA kernel of ops/head_pose.py, the normalized crop, gaze) -> one
+    packed float32 vector.
 
 The JAX package runs one frame in ``_step_impl`` and vmaps it in
 ``_step_batch_impl``; here both are the same batched code, the per-frame
@@ -55,7 +55,7 @@ from isbfsar_tpu_torch.focus.detector import FocusDetector
 from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
 from isbfsar_tpu_torch.models.layers import BatchNorm, pin_float32_matmul
 from isbfsar_tpu_torch.ops.fused_input import fused_i420_inputs
-from isbfsar_tpu_torch.ops.head_pose import head_pose_from_landmarks
+from isbfsar_tpu_torch.ops.head_pose import focus_geometry
 from isbfsar_tpu_torch.ops.smooth import one_euro_gated_state, one_euro_gated_step
 
 
@@ -93,7 +93,7 @@ class _Layout:
 
 
 # the hand kernels' wrappers, whose launch counts graph replays add to
-KERNELS = (fused_i420_inputs, head_pose_from_landmarks)
+KERNELS = (fused_i420_inputs, focus_geometry)
 
 # the packed focus fields in the JAX order: (the detector output each holds, shape)
 FOCUS_FIELDS = {

@@ -11,7 +11,8 @@ import torch
 
 from isbfsar_tpu_torch.configs import CameraIntrinsics
 from isbfsar_tpu_torch.focus import geometry
-from isbfsar_tpu_torch.kernel_bench import face_landmarks, head_pose_errors
+from isbfsar_tpu_torch.kernel_bench import (TOL_HEAD, face_landmarks, head_pose_errors,
+                                            newton_steps)
 from isbfsar_tpu_torch.ops import fused_input, head_pose
 from isbfsar_tpu_torch.ops.image import bgr_to_i420
 
@@ -109,7 +110,7 @@ def test_graph_replay_equals_eager(ci_pipes):
 def test_launches_are_counted_under_replay(ci_pipes):
     graphs, _, frames = ci_pipes
     graphs.step(frames[0])  # B=1 is captured by now
-    kernels = (fused_input.fused_i420_inputs, head_pose.head_pose_from_landmarks)
+    kernels = (fused_input.fused_i420_inputs, head_pose.focus_geometry)
     assert [graphs._graphs[1].launches[k] for k in kernels] == [1, 1]
     before = [k.launches for k in kernels]
     outs = [graphs.step(f) for f in frames[:4]]
@@ -122,67 +123,71 @@ def test_launches_are_counted_under_replay(ci_pipes):
     np.testing.assert_array_equal(again["f_head_position"], outs[0]["f_head_position"])
 
 
-# Head pose, the kernel (float64 inside) against its plain version (float32,
-# cuSOLVER's SVD) on the same card: an H100 read up to 3.6e-6 in the
-# rotation and 1.2e-6 of the center's distance (chip_smoke.py and
-# kernel_bench.py); held at a few times that.
-TOL_ROT, TOL_CENTER = 1e-5, 5e-6
+# The focus-geometry kernel (head pose by QCP in float64, then the geometry
+# after it) against its plain version (float32, cuSOLVER's SVD) on the same
+# card, at kernel_bench.TOL_HEAD (rotation 1e-5, center 5e-6 of its
+# distance, and the limits of the other four outputs, with their reasons).
 
 
 def _k(device):
     return torch.from_numpy(CameraIntrinsics().matrix()).to(device)
 
 
+def _check(err, what=""):
+    assert all(err[f] <= TOL_HEAD[f] for f in TOL_HEAD), (what, err)
+
+
 @pytest.mark.parametrize("b", [1, 8, 16])
 def test_head_pose_kernel_matches_plain_version(cuda, b):
     lms = torch.from_numpy(face_landmarks(b, np.random.default_rng(b))).to(cuda)
-    before = head_pose.head_pose_from_landmarks.launches
-    err_rot, err_center = head_pose_errors(lms, _k(cuda))
+    before = head_pose.focus_geometry.launches
+    err = head_pose_errors(lms, _k(cuda))
     torch.cuda.synchronize()
-    assert head_pose.head_pose_from_landmarks.launches == before + 1
-    assert err_rot <= TOL_ROT and err_center <= TOL_CENTER, (err_rot, err_center)
+    assert head_pose.focus_geometry.launches == before + 1
+    assert set(err) == set(TOL_HEAD)
+    _check(err)
 
 
 def test_head_pose_kernel_on_face_frames_and_degenerate_landmarks(cuda):
     """The committed frames' true landmarks (both sizes, through their own
-    intrinsics) and six landmarks at one pixel, the principal point among
-    them: finite, the identity rotation in the degenerate case, and equal
-    to the plain version."""
+    intrinsics and at their crop sizes) and six landmarks at one pixel, the
+    principal point among them: finite, the identity rotation in the
+    degenerate case, and every output equal to the plain version."""
     from isbfsar_tpu_torch.profile_slice import CI_INTRINSICS, focus_frames
 
-    for height, intr in ((480, CameraIntrinsics()), (240, CI_INTRINSICS)):
+    for height, intr, size in ((480, CameraIntrinsics(), 224), (240, CI_INTRINSICS, 64)):
         k = torch.from_numpy(intr.matrix()).to(cuda)
         lms = torch.from_numpy(focus_frames(height)["landmarks"]).to(cuda)
-        err_rot, err_center = head_pose_errors(lms, k)
-        assert err_rot <= TOL_ROT and err_center <= TOL_CENTER, (height, err_rot, err_center)
+        _check(head_pose_errors(lms, k, size), height)
     k = _k(cuda)
     pts = torch.tensor([[320.0, 240.0], [100.3, 50.7], [float(k[0, 2]), float(k[1, 2])]])
     lms = pts[:, None].expand(-1, 6, -1).contiguous().to(cuda)
-    rot, center = head_pose.head_pose_from_landmarks(lms, k)
-    assert torch.isfinite(rot).all() and torch.isfinite(center).all()
-    torch.testing.assert_close(rot, torch.eye(3, device=cuda).expand(3, 3, 3), atol=0, rtol=0)
-    err_rot, err_center = head_pose_errors(lms, k)
-    assert err_rot <= TOL_ROT and err_center <= TOL_CENTER, (err_rot, err_center)
+    out = head_pose.focus_geometry(lms, k)
+    assert all(torch.isfinite(t).all() for t in out)
+    torch.testing.assert_close(out.rot, torch.eye(3, device=cuda).expand(3, 3, 3), atol=0, rtol=0)
+    _check(head_pose_errors(lms, k))
 
 
-def test_head_pose_sweeps_and_the_plain_solve(cuda):
-    """The kernel reports its Jacobi sweeps (the data-dependent work the
-    bound counts): at least two per iteration on real faces, none on a
-    degenerate frame."""
+def test_head_pose_newton_steps_and_the_plain_solve(cuda):
+    """The kernel reports its Newton steps (the data-dependent work the
+    bound counts): at least one per iteration and under the cap in every
+    iteration on real faces, none on a degenerate frame."""
     k = _k(cuda)
     lms = torch.from_numpy(face_landmarks(4, np.random.default_rng(0))).to(cuda)
     lms[3] = 200.0
-    sweeps = torch.zeros(4, dtype=torch.int32, device=cuda)
-    head_pose.head_pose_from_landmarks(lms, k, sweeps=sweeps)
-    assert (sweeps[:3] >= 80).all() and int(sweeps[3]) == 0
-    rot, center = geometry.head_pose_from_landmarks(lms.cpu(), k.cpu())
-    assert torch.isfinite(center).all()
+    steps = newton_steps(lms, k)
+    assert (steps[:3, 0] >= 40).all() and (steps[:3, 1] < head_pose.MAX_NEWTON).all()
+    assert steps[3].tolist() == [0, 0]
+    out = head_pose.focus_geometry_reference(lms.cpu(), k.cpu())
+    assert all(torch.isfinite(t).all() for t in out)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "intrinsics", "device"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "intrinsics", "device", "steps",
+                                 "iters", "out_size"])
 def test_head_pose_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     lms = torch.from_numpy(face_landmarks(2, np.random.default_rng(0))).to(cuda)
     k = _k(cuda)
+    kwargs = {}
     if bad == "dtype":
         lms = lms.double()
     elif bad == "shape":
@@ -191,9 +196,15 @@ def test_head_pose_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
         lms = lms.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "intrinsics":
         k = k[:2]
-    else:
+    elif bad == "device":
         k = k.cpu()
-    before = head_pose.head_pose_from_landmarks.launches
+    elif bad == "steps":  # one count per frame where the kernel writes two
+        kwargs["steps"] = torch.zeros(2, dtype=torch.int32, device=cuda)
+    elif bad == "iters":
+        kwargs["iters"] = 0
+    else:
+        kwargs["out_size"] = 0
+    before = head_pose.focus_geometry.launches
     with pytest.raises(ValueError):
-        head_pose.head_pose_from_landmarks(lms, k)
-    assert head_pose.head_pose_from_landmarks.launches == before
+        head_pose.focus_geometry(lms, k, **kwargs)
+    assert head_pose.focus_geometry.launches == before

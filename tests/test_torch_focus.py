@@ -207,12 +207,16 @@ def test_head_pose_plain_matches_jax(kind):
 def test_head_pose_degenerate_landmarks_are_finite():
     """Six landmarks at one pixel (the principal point among them, where
     the reference's solve reaches NaN): the identity rotation and a finite
-    center along the ray, 1e6 times the assumed depth away; the wrapper's
-    CPU path is this plain version."""
+    center along the ray, 1e6 times the assumed depth away, and finite
+    geometry after it; the kernel wrapper's CPU path is this plain version."""
     pts = np.array([[320.0, 240.0], [100.3, 50.7], [K[0, 2], K[1, 2]], [0.0, 0.0]], np.float32)
     lms = np.repeat(pts[:, None], 6, axis=1)
-    rot, center = head_pose.head_pose_from_landmarks(torch.from_numpy(lms), torch.from_numpy(K))
-    assert torch.isfinite(rot).all() and torch.isfinite(center).all()
+    out = head_pose.focus_geometry(torch.from_numpy(lms), torch.from_numpy(K))
+    rot, center = out.rot, out.center
+    assert all(torch.isfinite(t).all() for t in out)
+    want = head_pose.focus_geometry_reference(torch.from_numpy(lms), torch.from_numpy(K))
+    for a, b in zip(out, want, strict=True):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     np.testing.assert_array_equal(rot.numpy(), np.broadcast_to(np.eye(3, dtype=np.float32), rot.shape))
     rays = np.concatenate([pts, np.ones((4, 1), np.float32)], 1) @ np.linalg.inv(K).T
     want = rays * 0.6e6 + jg.CANONICAL_FACE_3D.mean(0)
