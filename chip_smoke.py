@@ -41,7 +41,23 @@ Phases, each timed; any failure exits non-zero and prints no result:
    and read just after; the same frames then run eagerly
    (``cuda_graphs=False``) as the oracle of the graphs, and the eager p50
    is printed for the record, as are the focus-off ``step`` p50 and the
-   device ms and kernels per frame with focus on and off.
+   device ms and kernels per frame with focus on and off;
+6. serve, at the same widths: (a) ``python -m
+   isbfsar_tpu_torch.runtime.serve --fused --weights random --yolo-thresh
+   0.0`` as a subprocess behind a queue hub in this process, driven by
+   ``run_source`` over synthetic 640x480 frames with add, save, remove,
+   load, a bogus command and quit, each sent once the previous one's log
+   line has come (and, after add, its action has scored): the ACK must
+   come before the acquisition, every log line must come, the service must
+   exit 0 within a deadline, and it must count launches of both kernels;
+   (b) on ``build_slice`` and BGR camera frames: the orchestrator's
+   overlapped and synchronous ``get_frame`` (p50 of the overlapped under
+   33 ms; overlapped equal to synchronous one frame late, exactly),
+   ``get_frame_batch(overlap=True)`` at B=16, the eager module path, and
+   ``MultiStreamPipeline`` with 4 streams at B=16, each stream against a
+   single-stream twin that keeps its frames in their rows of the
+   multi-stream step (``TOL_BATCHED``); both kernels' launches are counted
+   on every path and held to the dispatches.
 
 The three weight files are required: a missing one fails the run.
 
@@ -52,9 +68,14 @@ the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -63,6 +84,7 @@ from isbfsar_tpu_torch import weights
 from isbfsar_tpu_torch.kernel_bench import (TOL_HEAD, face_cases, graph_ms, head_pose_bound,
                                             head_pose_errors, launch_ms, loop_ms, newton_steps)
 from isbfsar_tpu_torch.ops import build, fused_input, head_pose
+from isbfsar_tpu_torch.ops.image import bgr_to_i420, i420_to_bgr
 from isbfsar_tpu_torch.profile_slice import (build_ci, build_slice, ci_frames, profile_steps,
                                              slice_frames, twin)
 
@@ -103,6 +125,19 @@ TOL_BATCHED = {"pose": 1e-6, "pose_abs": 1e-2, "distance": 2.5e-2, "conf": 1e-6,
                "f_landmarks": 5e-3, "f_head_position": 3e-5, "f_head_rotvec": 4e-5,
                "f_norm_head_rot2d": 4e-5, "f_gaze": 5e-3, "f_norm_gaze": 5e-3}
 FRAME_PERIOD_MS = 1e3 / 30  # the step must keep up with a 30 FPS camera
+# Phase 6a: the service's command script, each command sent once the one
+# before it has its log line and at least SPACING frames have passed (a
+# command sent during an acquisition is swallowed, as in the reference).
+SERVE_SCRIPT = (("add a", "Action a learned successfully!"),
+                ("save", "Classes saved successfully in "),
+                ("remove a", "Action a removed"),
+                ("load", "Loaded 1 classes"),
+                ("bogus", "Not a valid command!"),
+                ("quit", None))
+SPACING = 120
+SERVE_DEADLINE_S = 420  # the service's start, warm-up and whole script
+SERVING_FRAMES = 40
+STREAMS, STREAM_BATCH, STREAM_TICKS = 4, 16, 64
 EXACT = ("pose_ok", "ar_ready", "f_found")
 KERNELS = (fused_input.fused_i420_inputs, head_pose.focus_geometry)
 
@@ -214,10 +249,10 @@ def check_head_pose(rng) -> dict:
     return entry
 
 
-def check_close(what: str, got: list, want: list, tol: dict) -> None:
+def check_close(what: str, got: list, want: list, tol: Optional[dict]) -> None:
     """Field-wise max |got - want| over paired packed outputs, logged beside
     each field's largest |value|; raises if a field is over its limit (the
-    booleans must be equal)."""
+    booleans must be equal). ``tol=None`` logs the differences only."""
     diff, mag = {}, {}
     for a, b in zip(got, want, strict=True):
         for key in b:
@@ -226,6 +261,8 @@ def check_close(what: str, got: list, want: list, tol: dict) -> None:
             mag[key] = max(mag.get(key, 0.0), float(np.max(np.abs(y))))
     log(f"[{what}] max|diff| (max|value|): "
         + " ".join(f"{k}={diff[k]:.3g} ({mag[k]:.3g})" for k in diff))
+    if tol is None:
+        return
     over = [f"{k} {diff[k]} > {tol.get(k, 0.0)}" for k in diff
             if not diff[k] <= (0.0 if k in EXACT else tol[k])]
     if over:
@@ -262,9 +299,12 @@ def launches() -> dict:
     return {kernel.__name__: kernel.launches for kernel in KERNELS}
 
 
-def check_launches(where: str, counts: dict, want: int) -> None:
-    if any(n != want for n in counts.values()):
-        raise AssertionError(f"{where}: kernel launches {counts}, not one per dispatch ({want})")
+def check_launches(where: str, counts: dict, want) -> None:
+    """Each kernel launched ``want`` times: one per dispatch, or the given
+    count per kernel."""
+    want = want if isinstance(want, dict) else dict.fromkeys(counts, want)
+    if counts != want:
+        raise AssertionError(f"{where}: kernel launches {counts}, not {want}")
 
 
 def check_small_input() -> None:
@@ -371,6 +411,286 @@ def run_slice(card: str, clip) -> dict:
     return counts
 
 
+def serve_commands(shown: list, sent: list):
+    """The command stream of phase 6a: each command of SERVE_SCRIPT once the
+    previous one's log line is in ``shown`` and SPACING frames have passed;
+    after ``add a``, also once ``a`` is among the actions. Records
+    (command, len(shown) when it was sent) in ``sent``."""
+    frames = 0
+    for i, (cmd, _) in enumerate(SERVE_SCRIPT):
+        if i:
+            prev_cmd, want = SERVE_SCRIPT[i - 1]
+            since = sent[-1][1]
+            while not (frames >= SPACING
+                       and any(e.get("log", "").startswith(want) for e in shown[since:])
+                       and (prev_cmd != "add a"
+                            or any("a" in e.get("actions", {}) for e in shown[since:]))):
+                frames += 1
+                yield ""
+        sent.append((cmd, len(shown)))
+        frames = 0
+        yield cmd
+
+
+def run_service(card: str) -> dict:
+    """Phase 6a: ``python -m isbfsar_tpu_torch.runtime.serve --fused`` on the
+    card, at full width with random weights, behind a queue hub in this
+    process, driven by ``run_source`` with SERVE_SCRIPT; returns the
+    kernels' launches the service counted while serving."""
+    from isbfsar_tpu_torch.runtime.ipc import QueueHub
+    from isbfsar_tpu_torch.runtime.source import SyntheticSource, run_source
+
+    hub = QueueHub(("127.0.0.1", 0)).start_background()
+    host, port = hub._server.address
+    work = tempfile.mkdtemp(prefix="isbfsar_serve_")
+    save_dir = os.path.join(work, "saved")
+    cmd = [sys.executable, "-m", "isbfsar_tpu_torch.runtime.serve", "--fused", "--weights",
+           "random", "--yolo-thresh", "0.0", "--save-dir", save_dir, "--hub", host,
+           "--hub-port", str(port)]
+    log_path = os.path.join(work, "serve.log")
+    t0 = time.perf_counter()
+    shown, sent, pushed, failure = [], [], [], []
+
+    class Collect:
+        def show(self, elements):
+            shown.append({k: v for k, v in elements.items() if k != "img"})
+
+    def source():
+        try:
+            pushed.append(run_source(SyntheticSource(640, 480), hub_host=host, hub_port=port,
+                                     visualizer=Collect(), command_stream=serve_commands(shown, sent)))
+        except Exception as e:  # reported by the phase below
+            failure.append(repr(e))
+
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            feeder = threading.Thread(target=source, daemon=True)
+            feeder.start()
+            deadline = time.perf_counter() + SERVE_DEADLINE_S
+            while feeder.is_alive() and time.perf_counter() < deadline:
+                feeder.join(timeout=1.0)
+                if feeder.is_alive() and proc.poll() is not None:
+                    failure.append(f"the service exited {proc.returncode} mid-script")
+                    break
+            if feeder.is_alive() or failure:
+                raise AssertionError(f"the service did not answer the script within "
+                                     f"{SERVE_DEADLINE_S} s (sent {sent}, {len(shown)} frames "
+                                     f"shown, {failure})")
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            hub.stop()
+            with open(log_path) as f:
+                service_log = f.read()
+            shutil.rmtree(work, ignore_errors=True)
+            if proc.returncode != 0 or failure or len(sent) < len(SERVE_SCRIPT):
+                log("[serve] service log:\n" + service_log[-4000:])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the service exited {rc}")
+    logs = [e["log"] for e in shown if e.get("log")]
+    for _, want in SERVE_SCRIPT[:-1]:
+        if not any(line.startswith(want) for line in logs):
+            raise AssertionError(f"the service never logged {want!r}")
+    add_at = sent[0][1]
+    # the add frame's reply is the ACK, which run_source does not show: the
+    # next frame shown is the countdown's first
+    if shown[add_at].get("log") != "WAIT..." or pushed != [len(shown) + 2]:
+        raise AssertionError(f"no ACK before the acquisition ({shown[add_at].get('log')!r}, "
+                             f"{pushed} frames pushed, {len(shown)} shown)")
+    fired = [e for e in shown if "a" in e.get("actions", {})]
+    counts = None
+    for line in service_log.splitlines():
+        if "kernel launches while serving:" in line:
+            counts = json.loads(line.split("serving: ", 1)[1].replace("'", '"'))
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"the service launched a kernel no time: {counts}")
+    starts = [line for line in service_log.splitlines() if line.startswith("[isbfsar-tpu]")]
+    log(f"[serve] python -m isbfsar_tpu_torch.runtime.serve --fused --weights random "
+        f"--yolo-thresh 0.0 (640x480 I420, YOLOv4 @ 256, EfficientNetV2-L @ 256, bf16, focus "
+        f"on): {' | '.join(starts)}")
+    log(f"[serve] {pushed[0]} frames pushed through the TCP hub in {seconds:.1f} s with the "
+        f"service's start; commands at frames {[(c, n) for c, n in sent]}; 'a' scored on "
+        f"{len(fired)} frames; logs: {sorted(set(logs) - {'WAIT...', 'GO!'}, key=logs.index)[:8]}"
+        f"; exit 0; {card}")
+    return counts
+
+
+def bgr_frames() -> list:
+    """The smoke and face frames as the BGR uint8 frames a camera gives."""
+    return [torch.round(i420_to_bgr(torch.from_numpy(f), 480)).to(torch.uint8).numpy()
+            for f in slice_frames()]
+
+
+def p50_ms(lat: list) -> float:
+    return float(np.percentile(lat, 50)) * 1e3
+
+
+def timed(fn, items) -> tuple:
+    """fn over items: (results, per-call seconds)."""
+    out, lat = [], []
+    for x in items:
+        t = time.perf_counter()
+        out.append(fn(x))
+        lat.append(time.perf_counter() - t)
+    return out, lat
+
+
+SERVED_FIELDS = ("pose", "distance", "bbox", "edges", "actions", "is_true", "requires_focus",
+                 "focus", "face_bbox")
+
+
+def check_lagged(overlapped: list, sync: list, frames: list) -> None:
+    """The overlapped results, one frame late, equal the synchronous ones exactly."""
+    for i, (got, want) in enumerate(zip(overlapped[1:], sync, strict=True)):
+        if got["img"] is not frames[i]:
+            raise AssertionError(f"overlapped result {i + 1} is not paired with frame {i}")
+        keys = set(want) - {"fps"}
+        if set(got) - {"fps"} != keys:
+            raise AssertionError(f"frame {i}: overlapped keys {sorted(got)} != {sorted(want)}")
+        for key in keys & set(SERVED_FIELDS):
+            a, b = got[key], want[key]
+            same = (a == b if isinstance(b, (dict, tuple, bool)) else
+                    np.array_equal(np.asarray(a), np.asarray(b)))
+            if not same:
+                raise AssertionError(f"frame {i} {key}: overlapped {a!r} != synchronous {b!r}")
+
+
+def yolo_row_shift(pipe, frames: list) -> float:
+    """Max |difference| of the YOLO confidences of the same I420 frames when
+    they sit STREAM_BATCH rows further down one batch."""
+    with torch.inference_mode():
+        _, yolo_in = pipe._decode_frame(torch.from_numpy(np.stack(frames)).cuda())
+        shift = torch.arange(len(frames), device="cuda").roll(STREAM_BATCH)
+        yolo = pipe._params()["hpe"]["yolo"]
+        a = yolo(yolo_in[:, 0].permute(0, 3, 1, 2))[1]
+        b = yolo(yolo_in[shift][:, 0].permute(0, 3, 1, 2))[1]
+        return float((a[shift] - b).abs().max())
+
+
+def run_serving(card: str) -> dict:
+    """Phase 6b: the serving surface in process at full width (build_slice),
+    on BGR camera frames; returns each path's kernel launches."""
+    from isbfsar_tpu_torch.runtime.orchestrator import Orchestrator
+    from isbfsar_tpu_torch.serving import MultiStreamPipeline
+
+    pipe = build_slice(seed=0, cuda_graphs=True)
+    clip = bgr_frames()
+    frames = [clip[i % len(clip)] for i in range(SERVING_FRAMES)]
+    by_path = {}
+
+    def orchestrator(**kw):
+        pipe.focus.focuses = []
+        return Orchestrator(pipe.config, fused=pipe, **kw)
+
+    orchestrator(fused_overlap=False).get_frame_batch(frames[:STREAM_BATCH])  # warm: B=16
+    warm = orchestrator()
+    for f in frames[:3]:
+        warm.get_frame(img=f)
+    torch.cuda.synchronize()
+
+    zero_launches()
+    overlapped, lat_ov = timed(orchestrator().get_frame, frames + frames[:1])
+    by_path["get_frame overlapped"] = launches()
+    check_launches("get_frame overlapped", by_path["get_frame overlapped"], SERVING_FRAMES + 1)
+    zero_launches()
+    sync, lat_sync = timed(orchestrator(fused_overlap=False).get_frame, frames)
+    by_path["get_frame sync"] = launches()
+    check_launches("get_frame sync", by_path["get_frame sync"], SERVING_FRAMES)
+    check_lagged(overlapped, sync, frames)
+    scored = sum(bool(e["actions"]) for e in sync)
+    faces = sum("face_bbox" in e for e in sync)
+    if not (scored and faces):
+        raise AssertionError(f"the served frames scored no action ({scored}) or found no face "
+                             f"({faces})")
+
+    batches = [[clip[(i + j) % len(clip)] for j in range(STREAM_BATCH)] for i in range(6)]
+    orch = orchestrator()
+    zero_launches()
+    t = time.perf_counter()
+    batched = [e for b in batches for e in orch.get_frame_batch(b, overlap=True)]
+    batch_fps = len(batched) / (time.perf_counter() - t)
+    by_path["get_frame_batch B=16 overlapped"] = launches()
+    check_launches("get_frame_batch", by_path["get_frame_batch B=16 overlapped"], len(batches))
+
+    module = Orchestrator(pipe.config, hpe=pipe.hpe, focus=pipe.focus, ar=pipe.ar)
+    for f in frames[:3]:
+        module.get_frame(img=f)
+    torch.cuda.synchronize()
+    zero_launches()
+    module_out, lat_module = timed(module.get_frame, frames)
+    by_path["module path get_frame"] = launches()
+    # BGR frames take no I420 kernel; focus launches once a frame
+    check_launches("module path get_frame", by_path["module path get_frame"],
+                   {"fused_i420_inputs": 0, "focus_geometry": SERVING_FRAMES})
+    if not any("pose" in e for e in module_out):
+        raise AssertionError("the module path found no pose")
+
+    # S streams at B frames each: stream s sees the clip from its own phase
+    i420 = slice_frames()
+    ticks = [np.stack([i420[(i + 2 * s) % len(i420)] for s in range(STREAMS)])
+             for i in range(STREAM_TICKS)]
+    multi = MultiStreamPipeline(n_streams=STREAMS, pipe=pipe)
+    multi.start()
+    list(multi.stream_batched(iter(ticks[:STREAM_BATCH]), STREAM_BATCH))  # capture (S, B)
+    multi.start()
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    streamed = list(multi.stream_batched(iter(ticks), STREAM_BATCH))
+    multi_fps = STREAMS * len(streamed) / (time.perf_counter() - t)
+    by_path[f"MultiStreamPipeline S={STREAMS} B={STREAM_BATCH}"] = launches()
+    check_launches("MultiStreamPipeline", by_path[f"MultiStreamPipeline S={STREAMS} "
+                                                  f"B={STREAM_BATCH}"], STREAM_TICKS // STREAM_BATCH)
+    # Each stream's twin is a single-stream pipeline fed that stream's frames
+    # in the rows they hold in the multi-stream step, at its batch of S*B,
+    # with empty frames in the other rows: they find no person, so they leave
+    # the twin's recurrent state alone. cuDNN's bf16 YOLO at a batch of 64
+    # gives a frame a result that depends on its row (yolo_row_shift logs
+    # how much), so only the same rows make the twin a test of the stream axis.
+    row_shift = yolo_row_shift(pipe, [t[0] for t in ticks])
+    blank = bgr_to_i420(np.zeros(pipe.hpe.frame_shape + (3,), np.uint8))
+    b = STREAM_BATCH
+    for s in range(STREAMS):
+        pipe.start()
+        twin_out = []
+        for k in range(0, STREAM_TICKS, b):
+            batch = np.stack([blank] * (STREAMS * b))
+            batch[s * b:(s + 1) * b] = [t[s] for t in ticks[k:k + b]]
+            rows = [pipe.layout.unpack(r) for r in pipe.dispatch_batch(batch).numpy()]
+            if any(r["pose_ok"] > 0 for j, r in enumerate(rows) if not s * b <= j < (s + 1) * b):
+                raise AssertionError("an empty frame found a person: the twin's state moved")
+            twin_out += rows[s * b:(s + 1) * b]
+        check_close(f"serving: stream {s} of {STREAMS} vs its single-stream twin",
+                    [tick[s] for tick in streamed], twin_out, TOL_BATCHED)
+    pipe.start()
+    check_close(f"serving: stream 0 of {STREAMS} vs a single-stream pipeline at B={b}, for the "
+                f"record (other rows, another batch)", [tick[0] for tick in streamed],
+                list(pipe.stream_batched([t[0] for t in ticks], b)), None)
+
+    log(f"[serving] Orchestrator.get_frame over {SERVING_FRAMES} BGR frames (I420-encoded on the "
+        f"host): p50 {p50_ms(lat_ov):.2f} ms overlapped (min {min(lat_ov) * 1e3:.2f} ms), "
+        f"{p50_ms(lat_sync):.2f} ms synchronous (min {min(lat_sync) * 1e3:.2f} ms), limit "
+        f"{FRAME_PERIOD_MS:.1f} ms on the overlapped; an action scored on {scored}, a face on "
+        f"{faces}; overlapped = synchronous one frame late, exactly")
+    log(f"[serving] get_frame_batch(overlap=True) B={STREAM_BATCH}: {batch_fps:.1f} FPS over "
+        f"{len(batched)} frames; module path get_frame p50 {p50_ms(lat_module):.2f} ms (min "
+        f"{min(lat_module) * 1e3:.2f} ms, eager, no limit); MultiStreamPipeline S={STREAMS} "
+        f"B={STREAM_BATCH}: {multi_fps:.1f} frames/s across the streams over "
+        f"{STREAMS * len(streamed)} frames; {card}")
+    log(f"[serving] YOLO conf of the same {STREAM_TICKS} frames moved {STREAM_BATCH} rows down "
+        f"one batch: max|diff| {row_shift:.3g} (cuDNN, bf16)")
+    log(f"[serving] kernel launches by path: {by_path}")
+    if not p50_ms(lat_ov) < FRAME_PERIOD_MS:
+        raise AssertionError(f"overlapped get_frame p50 {p50_ms(lat_ov):.2f} ms is over the "
+                             f"{FRAME_PERIOD_MS:.1f} ms frame period")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -401,6 +721,14 @@ def main() -> int:
     t = time.perf_counter()
     counts = run_slice(card, slice_frames())
     phases["slice"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    by_path = {"FusedPipeline step and stream_batched": counts,
+               "serve --fused (the service process)": run_service(card)}
+    phases["serve"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path.update(run_serving(card))
+    phases["serving"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",
@@ -410,7 +738,8 @@ def main() -> int:
                 "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
                 "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
                 "bound_by": entry["bound_by"], "library_ms": None, "shape": entry["shape"],
-                "ms_b1": entry["ms_b1"], "bound_ms_b1": entry["bound_ms_b1"]},
+                "ms_b1": entry["ms_b1"], "bound_ms_b1": entry["bound_ms_b1"],
+                "launches_by_path": {k: v["fused_i420_inputs"] for k, v in by_path.items()}},
                {"name": "focus_geometry", "route": "cuda",
                 "source": "isbfsar_tpu_torch/csrc/head_pose.cu",
                 # replaces no Pallas kernel: the JAX functions are
@@ -421,6 +750,7 @@ def main() -> int:
                 "plain_ms": pose_entry["plain_ms"], "bound_ms": pose_entry["bound_ms"],
                 "bound_by": "operations", "library_ms": None, "shape": pose_entry["shape"],
                 "ms_b1": pose_entry["ms_b1"], "bound_ms_b1": pose_entry["bound_ms_b1"],
+                "launches_by_path": {k: v["focus_geometry"] for k, v in by_path.items()},
                 **{f"err_{f}": v for f, v in pose_entry["err"].items()}}]
     print(card)
     print(json.dumps({"kernels": kernels}))

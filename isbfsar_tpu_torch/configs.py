@@ -1,8 +1,9 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the fields of ``isbfsar_tpu/configs.py`` that the ported slice
-reads (I420 frame -> pose -> TRX match -> focus), with the same defaults. The port
-keeps its own copy so it imports nothing of the JAX package.
+reads (I420 or BGR frame -> pose -> TRX match -> focus, and the serving
+layer around it), with the same defaults. The port keeps its own copy so it
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -29,9 +30,19 @@ def seq_len_for(input_type: str) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class MainConfig:
+    """Orchestrator settings: the camera, and the acquisition of a new action
+    (``window_size`` good frames paced over ``acquisition_time`` seconds)."""
+
     input_type: str = DEFAULT_INPUT_TYPE
     cam_width: int = 640
     cam_height: int = 480
+    window_size: int = seq_len_for(DEFAULT_INPUT_TYPE)
+    skeleton_scale: float = 2200.0
+    acquisition_time: float = 3.0  # seconds
+
+    @staticmethod
+    def for_input(input_type: str) -> "MainConfig":
+        return MainConfig(input_type=input_type, window_size=seq_len_for(input_type))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +70,7 @@ class CameraIntrinsics:
 class HPEConfig:
     skeleton: str = DEFAULT_SKELETON
     yolo_thresh: float = 0.3
+    just_box: bool = False  # rgb mode: only the person box is needed
     yolo_input_size: int = 256
     crop_size: int = 256
     expand_joints_path: str = os.path.join(ASSETS_DIR, "joints_32_to_122.npy")
@@ -73,6 +85,7 @@ class ARConfig:
     way: int = 5
     n_joints: int = 30
     seq_len: int = seq_len_for(DEFAULT_INPUT_TYPE)
+    rgb_size: int = 224  # AR rgb crop side
     trans_linear_out_dim: int = 128
     temp_set: Tuple[int, ...] = (2,)
     pe_scale_factor: float = 0.1
@@ -112,3 +125,11 @@ class PipelineConfig:
     # Storage dtype of the two conv trunks (YOLO and EfficientNetV2); the
     # decode heads, BatchNorm statistics and the TRX stay float32.
     param_dtype: str = "bfloat16"
+
+    @staticmethod
+    def for_input(input_type: str) -> "PipelineConfig":
+        return PipelineConfig(
+            main=MainConfig.for_input(input_type),
+            hpe=HPEConfig(just_box=(input_type == "rgb")),
+            ar=ARConfig.for_input(input_type),
+        )

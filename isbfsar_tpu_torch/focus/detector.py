@@ -10,12 +10,13 @@ and GazeNet's pitch and yaw.
 :meth:`FocusDetector._forward_impl` runs all of it batched over frames and
 reads nothing back to the host, so the pipeline's CUDA graph holds it.
 
-On the host, :meth:`FocusDetector.estimate_collect` applies the close/far
-heuristic: a face whose box covers more than ``area_thr`` of the frame is
-"close" and in focus iff its normalized gaze z is below ``close_thr`` and
-its head yaw under ``foc_rot_thr``; a far face is in focus iff its
-normalized head yaw is under ``dist_thr``; ``is_focus`` is the majority
-over the last ``patience`` verdicts.
+On the host, :meth:`FocusDetector.estimate_collect` reads a frame's fields
+with one device -> host copy and applies the close/far heuristic: a face
+whose box covers more than ``area_thr`` of the frame is "close" and in
+focus iff its normalized gaze z is below ``close_thr`` and its head yaw
+under ``foc_rot_thr``; a far face is in focus iff its normalized head yaw
+is under ``dist_thr``; ``is_focus`` is the majority over the last
+``patience`` verdicts.
 
 The constructor turns TF32 off for matmuls and cuDNN convolutions
 (process-wide PyTorch state), as the pipeline does: the float32 operating
@@ -37,6 +38,7 @@ from isbfsar_tpu_torch.models.gaze import BlazeFaceLite, GazeNet, LandmarkRefine
 from isbfsar_tpu_torch.models.layers import init_random, pin_float32_matmul
 from isbfsar_tpu_torch.ops.head_pose import focus_geometry
 from isbfsar_tpu_torch.ops.warp import warp_image_bilinear
+from isbfsar_tpu_torch.utils.transfer import HostCopy, to_device
 from isbfsar_tpu_torch.weights import convert_focus
 
 TOP_K = 8  # anchors in the box ensemble
@@ -176,20 +178,35 @@ class FocusDetector:
 
     # ----------------------------------------------------------- public API
 
-    def estimate_async(self, frame: np.ndarray):
-        """Enqueue one (H, W, 3) uint8 BGR frame; the fields stay on the device."""
-        frames = torch.from_numpy(np.ascontiguousarray(frame))[None].to(self.device)
-        return {k: v[0] for k, v in self._forward_impl(self.nets, frames).items()}
+    @torch.inference_mode()
+    def estimate_async(self, frame) -> Dict[str, Any]:
+        """Enqueue one (H, W, 3) BGR frame (a host uint8 array, or a tensor
+        already on the device, which the module path shares with the pose
+        estimator) and start the copy of its small fields to the host in one
+        piece; waits for nothing on the card. The normalized image stays on
+        the device."""
+        if isinstance(frame, np.ndarray):
+            frame = to_device(frame, self.device)
+        out = {k: v[0] for k, v in self._forward_impl(self.nets, frame[None]).items()}
+        image = out.pop("normalized_image")
+        return {"fields": _FieldCopy(out), "normalized_image": image}
 
     def estimate_collect(self, out: Mapping[str, Any], return_image: bool = False):
-        """Read one frame's fields to the host and apply the close/far rule
-        and the ``patience`` vote. Returns (focus, Face), or None when no
-        face was found."""
+        """Read one frame's fields to the host with one device -> host copy
+        (the image, a second one, only when asked), then apply the close/far
+        rule and the ``patience`` vote. ``out`` is :meth:`estimate_async`'s
+        token, or a dict of one frame's fields (tensors or host arrays).
+        Returns (focus, Face), or None when no face was found."""
         cfg = self.config
-        host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-                for k, v in out.items() if k != "normalized_image" or return_image}
+        if isinstance(out.get("fields"), _FieldCopy):
+            host = out["fields"].numpy()
+        else:
+            host = _FieldCopy({k: v for k, v in out.items() if k != "normalized_image"}).numpy()
         if not bool(host["found"]):
             return None
+        image = out.get("normalized_image") if return_image else None
+        if isinstance(image, torch.Tensor):
+            image = image.cpu().numpy()
         face = Face(
             bbox=np.asarray(host["bbox"], np.float64).reshape(2, 2),
             landmarks=np.asarray(host["landmarks"]),
@@ -199,7 +216,7 @@ class FocusDetector:
             normalized_head_rot2d=np.asarray(host["normalized_head_rot2d"]),
             gaze_vector=np.asarray(host["gaze_vector"]),
             normalized_gaze_vector=np.asarray(host["normalized_gaze_vector"]),
-            normalized_image=np.asarray(host["normalized_image"]) if return_image else None,
+            normalized_image=None if image is None else np.asarray(image),
         )
         h, w = self.frame_shape
         area = ((face.bbox[1][0] - face.bbox[0][0]) * (face.bbox[1][1] - face.bbox[0][1])) / (w * h)
@@ -224,6 +241,35 @@ class FocusDetector:
     def warmup(self, n: int = 2) -> None:
         dummy = np.zeros(self.frame_shape + (3,), np.uint8)
         for _ in range(n):
-            self.estimate_async(dummy)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self.estimate_async(dummy)["fields"].numpy()
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type a field of ``dtype`` is read back as (bf16 and fp16 as float32)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return np.dtype(np.float32)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+class _FieldCopy:
+    """One frame's fields copied to the host in one piece: tensors are
+    packed into one float64 vector (exact for their float32, int and bool
+    values) and copied with one :class:`HostCopy`; :meth:`numpy` splits it
+    back into arrays of their own types. Host values pass through."""
+
+    def __init__(self, fields: Mapping[str, Any]):
+        tensors = {k: v for k, v in fields.items() if isinstance(v, torch.Tensor)}
+        self._host = {k: v for k, v in fields.items() if k not in tensors}
+        self._specs = [(k, tuple(v.shape), _host_dtype(v.dtype)) for k, v in tensors.items()]
+        self._copy = HostCopy(torch.cat([v.reshape(-1).to(torch.float64)
+                                         for v in tensors.values()])) if tensors else None
+
+    def numpy(self) -> Dict[str, Any]:
+        out = dict(self._host)
+        if self._copy is not None:
+            flat, offset = self._copy.numpy(), 0
+            for k, shape, dtype in self._specs:
+                n = int(np.prod(shape))
+                out[k] = flat[offset:offset + n].reshape(shape).astype(dtype)
+                offset += n
+        return out

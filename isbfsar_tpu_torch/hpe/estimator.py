@@ -6,15 +6,23 @@ EfficientNetV2 + MetrABS head -> 2D/3D soft-argmax -> FOV mask -> absolute
 reconstruction -> de-rotation -> 32 -> 30 joint matrix. Batched over a
 leading frame axis where the JAX code ran one frame and was vmapped.
 
-Nets are passed to ``_detect`` / ``_estimate_impl`` as a dict
-``{"yolo", "bbone", "head"}``, the counterpart of the JAX params argument,
-so the pipeline can hand in its cast copies.
+Nets are passed to ``_detect`` / ``_estimate_impl`` / ``_box_impl`` as a
+dict ``{"yolo", "bbone", "head"}``, the counterpart of the JAX params
+argument, so the pipeline can hand in its cast copies.
+
+The module path of the orchestrator calls :meth:`estimate_async`, which
+enqueues the frame and starts the result's copy to the host without
+waiting for the card, then :meth:`estimate_collect`, which waits for that
+one copy and returns the reference's contract: a dict with ``pose``
+(30, 3), ``edges`` and ``bbox`` (x1, x2, y1, y2), or None when no person is
+found or too few joints are in view (``just_box``: the bbox alone).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from isbfsar_tpu_torch.configs import CameraIntrinsics, HPEConfig
@@ -28,6 +36,7 @@ from isbfsar_tpu_torch.ops.reconstruct import reconstruct_absolute
 from isbfsar_tpu_torch.ops.softargmax import decode_heatmap2d, decode_heatmap3d, split_head_logits
 from isbfsar_tpu_torch.ops.warp import to_int32, warp_image
 from isbfsar_tpu_torch.utils.skeleton import get_skeleton, joint_matrix
+from isbfsar_tpu_torch.utils.transfer import HostCopy, to_device
 from isbfsar_tpu_torch.weights import convert_pose_stack
 
 
@@ -42,11 +51,14 @@ class HumanPoseEstimator:
         frame_shape: Tuple[int, int] = (480, 640),
         yolo_width: float = 1.0,
         device: str = "cuda",
+        just_box: Optional[bool] = None,
     ):
         """params: a pose-stack bundle tree ``{"yolo", "bbone", "head"}`` of
         Flax variables (``weights.load_calibrated``, or numpy trees from JAX);
-        None initializes random weights from ``seed``."""
+        None initializes random weights from ``seed``. just_box: run the
+        detector alone (default ``config.just_box``)."""
         self.config = config
+        self.just_box = config.just_box if just_box is None else just_box
         self.frame_shape = frame_shape
         self.device = torch.device(device)
         dtype = getattr(torch, config.compute_dtype)
@@ -92,6 +104,12 @@ class HumanPoseEstimator:
         y2 = torch.maximum(y2, y1 + 1)
         return (x1, y1, x2, y2), conf, found
 
+    def _box_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor):
+        """frames (B, H, W, 3) -> bbox (B, 4) int32 in the full path's
+        (x1, x2, y1, y2) order, conf (B,), found (B,)."""
+        (x1, y1, x2, y2), conf, found = self._detect(nets, frames)
+        return torch.stack([x1, x2, y1, y2], dim=-1), conf, found
+
     def _estimate_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None,
                        stages: Optional[dict] = None):
         """frames (B, H, W, 3) BGR -> pose (B, J, 3), bbox (B, 4) int32 in
@@ -124,3 +142,50 @@ class HumanPoseEstimator:
             stages.update(box=bbox, homography=h_mat, crop=crop, trunk=feats, logits=logits,
                           pred2d=pred2d, abs3d=pred3d, pose=pose)
         return pose, bbox, conf, found, visible
+
+    # ------------------------------------------------------------ public API
+
+    @torch.inference_mode()
+    def estimate_async(self, frame) -> Tuple[str, HostCopy]:
+        """Enqueue one (H, W, 3) BGR frame (a host uint8 array, or a tensor
+        already on the device) and start the copy of its result to the host;
+        waits for nothing on the card. Returns the token for
+        :meth:`estimate_collect`: the result packed into one float32 row
+        (bbox, conf and found, then pose and visible on the full path)."""
+        if isinstance(frame, np.ndarray):
+            frame = to_device(frame, self.device)
+        frames = frame[None]
+        if self.just_box:
+            bbox, conf, found = self._box_impl(self.nets, frames)
+            parts = (bbox, conf[:, None], found[:, None])
+        else:
+            pose, bbox, conf, found, visible = self._estimate_impl(self.nets, frames)
+            parts = (bbox, conf[:, None], found[:, None], pose.reshape(1, -1), visible[:, None])
+        packed = torch.cat([p.to(torch.float32) for p in parts], dim=1)[0]
+        return ("box" if self.just_box else "full", HostCopy(packed))
+
+    def estimate_collect(self, token) -> Optional[Dict[str, Any]]:
+        """Wait for a dispatched frame's one host copy and decode the
+        reference's dict-or-None contract."""
+        kind, copy = token
+        row = copy.numpy()
+        x1, x2, y1, y2 = (int(v) for v in row[:4])
+        if not row[5] > 0:  # found
+            return None
+        if kind == "box":
+            return {"bbox": (x1, x2, y1, y2)}
+        if not row[-1] > 0:  # visible
+            return None
+        return {"pose": row[6:-1].reshape(-1, 3).copy(), "edges": self.edges,
+                "bbox": (x1, x2, y1, y2)}
+
+    def estimate(self, frame) -> Optional[Dict[str, Any]]:
+        """frame: (H, W, 3) BGR uint8. Returns the reference's dict contract."""
+        return self.estimate_collect(self.estimate_async(frame))
+
+    def warmup(self, n: int = 2) -> None:
+        """Run the path ``n`` times on an empty frame (cuDNN's algorithm
+        choice and lazy CUDA initialization happen here, not on a live frame)."""
+        dummy = np.zeros(self.frame_shape + (3,), np.uint8)
+        for _ in range(n):
+            self.estimate_collect(self.estimate_async(dummy))

@@ -28,6 +28,13 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=None)
+def _area_weights_on(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    """``_area_weights`` on ``device``, copied there once: a copy from the
+    host memory waits for the card, and a CUDA graph cannot hold it."""
+    return torch.from_numpy(_area_weights(src, dst)).to(device)
+
+
 def resize_area(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Exact cv2.INTER_AREA downscale ``W_rows @ img @ W_colsᵀ`` in float32.
 
@@ -35,8 +42,8 @@ def resize_area(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     order (rows first) is the JAX function's.
     """
     h, w = img.shape[-3], img.shape[-2]
-    wr = torch.from_numpy(_area_weights(h, out_h)).to(img.device)
-    wc = torch.from_numpy(_area_weights(w, out_w)).to(img.device)
+    wr = _area_weights_on(h, out_h, img.device)
+    wc = _area_weights_on(w, out_w, img.device)
     chw = img.to(torch.float32).movedim(-1, -3)  # (..., c, h, w)
     x = torch.matmul(wr, chw)
     out = torch.matmul(x, wc.t())
@@ -82,17 +89,25 @@ _CV = (460324, -385875, -74448)  # r, g, b -> V
 
 
 def bgr_to_i420(bgr: np.ndarray) -> np.ndarray:
-    """Host-side (H, W, 3) uint8 BGR -> (H*3/2, W) uint8 planar I420, numpy only."""
+    """Host-side (H, W, 3) uint8 BGR -> (H*3/2, W) uint8 planar I420, numpy only.
+
+    In int32, in place: every sum stays under 2**28, and ``>>`` on a signed
+    integer floors as cv2's fixed point does (the serve loop encodes every
+    frame, so this is on its per-frame host path)."""
     h, w, _ = bgr.shape
-    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
     half = 1 << (_SHIFT - 1)
 
-    def mix(coef, rr, gg, bb, offset):
-        v = (coef[0] * rr + coef[1] * gg + coef[2] * bb + (offset << _SHIFT) + half) >> _SHIFT
+    def mix(coef, px, offset):
+        v = px[..., 2] * np.int32(coef[0])
+        v += px[..., 1] * np.int32(coef[1])
+        v += px[..., 0] * np.int32(coef[2])
+        v += np.int32((offset << _SHIFT) + half)
+        v >>= _SHIFT
         return np.clip(v, 0, 255).astype(np.uint8)
 
-    y = mix(_CY, r, g, b, 16)
-    rs, gs, bs = r[::2, ::2], g[::2, ::2], b[::2, ::2]
-    u = mix(_CU, rs, gs, bs, 128).reshape(h // 4, w)
-    v = mix(_CV, rs, gs, bs, 128).reshape(h // 4, w)
+    px = bgr.astype(np.int32)
+    y = mix(_CY, px, 16)
+    top_left = px[::2, ::2]
+    u = mix(_CU, top_left, 128).reshape(h // 4, w)
+    v = mix(_CV, top_left, 128).reshape(h // 4, w)
     return np.concatenate([y, u, v], axis=0)

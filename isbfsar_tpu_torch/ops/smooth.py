@@ -7,7 +7,8 @@
     x_hat     = EMA(x, alpha(fc))
 
 Only good observations (``ok``) tick the filter; the first one passes
-through unchanged.
+through unchanged. A leading stream axis is allowed: with ``lead=(S,)``
+the state holds S independent filters, and ``ok`` is one flag per stream.
 """
 
 from __future__ import annotations
@@ -28,12 +29,19 @@ def _alpha(cutoff: float, fs: float) -> float:
     return 1.0 / (1.0 + tau / te)
 
 
-def one_euro_gated_state(shape, device=None) -> Dict[str, torch.Tensor]:
+def one_euro_gated_state(shape, device=None, lead=()) -> Dict[str, torch.Tensor]:
+    """The state of ``prod(lead)`` filters of observations of ``shape``."""
+    lead = tuple(lead)
     return {
-        "x": torch.zeros(shape, dtype=torch.float32, device=device),
-        "dx": torch.zeros(shape, dtype=torch.float32, device=device),
-        "init": torch.zeros((), dtype=torch.bool, device=device),
+        "x": torch.zeros(lead + tuple(shape), dtype=torch.float32, device=device),
+        "dx": torch.zeros(lead + tuple(shape), dtype=torch.float32, device=device),
+        "init": torch.zeros(lead, dtype=torch.bool, device=device),
     }
+
+
+def _gate(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-stream flag shaped to broadcast over its stream's observation."""
+    return flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
 
 
 def one_euro_step(state, x, min_cutoff=MIN_CUTOFF, beta=BETA, d_cutoff=D_CUTOFF, fs=1.0):
@@ -50,14 +58,15 @@ def one_euro_step(state, x, min_cutoff=MIN_CUTOFF, beta=BETA, d_cutoff=D_CUTOFF,
 def one_euro_gated_step(state, x, ok, **kw):
     """One tick that only ingests good observations; returns (state, output)."""
     x = x.to(torch.float32)
+    init, gate = _gate(state["init"], x), _gate(ok, x)
     prev = {
-        "x": torch.where(state["init"], state["x"], x),
-        "dx": torch.where(state["init"], state["dx"], torch.zeros_like(x)),
+        "x": torch.where(init, state["x"], x),
+        "dx": torch.where(init, state["dx"], torch.zeros_like(x)),
     }
     new, x_hat = one_euro_step(prev, x, **kw)
     out_state = {
-        "x": torch.where(ok, new["x"], state["x"]),
-        "dx": torch.where(ok, new["dx"], state["dx"]),
+        "x": torch.where(gate, new["x"], state["x"]),
+        "dx": torch.where(gate, new["dx"], state["dx"]),
         "init": state["init"] | ok,
     }
-    return out_state, torch.where(ok, x_hat, x)
+    return out_state, torch.where(gate, x_hat, x)

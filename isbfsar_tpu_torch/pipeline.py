@@ -1,9 +1,10 @@
-"""FusedPipeline, skeleton mode with focus, I420 input (port of
+"""FusedPipeline, skeleton mode with focus, I420 or BGR input (port of
 ``isbfsar_tpu/pipeline.py``).
 
 Per frame:
 
-    I420 decode + YOLO input (the CUDA kernel of ops/fused_input.py) ->
+    I420 decode + YOLO input (the CUDA kernel of ops/fused_input.py; BGR
+    frames skip the decode and take the plain YOLO input, as in JAX) ->
     YOLO -> person pick -> virtual camera -> crop warp -> backbone ->
     heatmap head -> soft-argmax -> absolute reconstruction -> joint
     mapping -> root-centering -> One-Euro smoothing -> skeleton embed ->
@@ -15,10 +16,13 @@ Per frame:
     packed float32 vector.
 
 The JAX package runs one frame in ``_step_impl`` and vmaps it in
-``_step_batch_impl``; here both are the same batched code, the per-frame
-step being a batch of one. The recurrent parts (smoothing and the feature
+``_step_batch_impl``; here ``_step_batch_impl`` does both, a per-frame step
+being a batch of one. The recurrent parts (smoothing and the feature
 ring) run frame by frame inside the batch, as the JAX scans do, so a
-batched step equals the sequence of per-frame steps.
+batched step equals the sequence of per-frame steps. A state with a
+leading stream axis S (``init_state(lead=(S,))``) makes the same step run
+S independent streams (``serving.MultiStreamPipeline``): the nets see the
+S*B frames as one batch, and the recurrences run per stream.
 
 The reference compiles the step into one program (``jax.jit``). Here, on
 the card, each batch size's step is a CUDA graph: the frames, the
@@ -32,6 +36,13 @@ same buffers, so the graphs stay valid. ``cuda_graphs=False`` runs every
 step eagerly instead, the oracle the graphs are held against; on the CPU
 there are no graphs, and ``cuda_graphs=True`` runs the static-buffer step
 eagerly.
+
+``dispatch`` returns a :class:`~isbfsar_tpu_torch.utils.transfer.HostCopy`
+token: the packed rows' copy to pinned host memory is enqueued right after
+the step (straight from the graph's static output: stream order puts it
+before the next replay), and ``fetch`` waits for that copy alone, so a
+caller that dispatches frame i and then fetches frame i-1 does not wait
+for frame i.
 
 The convolutions and matmuls must run in full float32 where the JAX code
 does (``Precision.HIGHEST``), so the constructor turns TF32 off for
@@ -56,14 +67,16 @@ from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
 from isbfsar_tpu_torch.models.layers import BatchNorm, pin_float32_matmul
 from isbfsar_tpu_torch.ops.fused_input import fused_i420_inputs
 from isbfsar_tpu_torch.ops.head_pose import focus_geometry
+from isbfsar_tpu_torch.ops.image import yolo_preprocess
 from isbfsar_tpu_torch.ops.smooth import one_euro_gated_state, one_euro_gated_step
+from isbfsar_tpu_torch.utils.transfer import HostCopy, to_device
 
 
 class StreamState(NamedTuple):
     """Device-resident recurrent state threaded through the step."""
 
-    window: torch.Tensor  # (seq_len, trans_linear_in_dim) per-frame feature ring
-    n_valid: torch.Tensor  # () int32 — filled frames in the window
+    window: torch.Tensor  # ([S,] seq_len, trans_linear_in_dim) per-frame feature ring
+    n_valid: torch.Tensor  # ([S],) int32 — filled frames in the window
     smooth: Any = ()  # One-Euro state dict when ARConfig.smooth_poses
 
 
@@ -146,7 +159,58 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
-class FusedPipeline:
+class _StaticSteps:
+    """The host side of a step over recurrent state and a support set: the
+    object's ``_state``, ``_support_kv`` and ``_support_mask`` through
+    ``pipe._step_batch_impl`` with ``pipe``'s nets. Eager, or with
+    ``pipe.cuda_graphs`` one CUDA graph per input shape over static buffers,
+    which ``_assign`` fills in place once they exist (the graphs hold their
+    addresses)."""
+
+    pipe: "FusedPipeline"
+    _graphs: Dict[Any, "_StepGraph"]
+    _state: Optional[StreamState]
+    _support_kv: Any
+    _support_mask: Optional[torch.Tensor]
+
+    @torch.inference_mode()
+    def _assign(self, **fresh) -> None:
+        """Set the named buffers, in place once the static buffers exist."""
+        static = self.pipe.cuda_graphs and self._support_mask is not None
+        for name, value in fresh.items():
+            if static:
+                for dst, src in zip(_tensors(getattr(self, name)), _tensors(value), strict=True):
+                    dst.copy_(src)
+            else:
+                setattr(self, name, value)
+
+    @torch.inference_mode()
+    def _enqueue(self, frames: np.ndarray, key) -> torch.Tensor:
+        """Frames (with the state's leading stream axis, if any) -> packed
+        rows on the device; ``key`` names the input shape's graph."""
+        frames = np.asarray(frames, np.uint8)
+        pipe = self.pipe
+        if pipe.cuda_graphs:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = _StepGraph(pipe.device, frames.shape)
+            return graph.run(frames, self._graph_body)
+        packed, self._state = pipe._step_batch_impl(
+            pipe._device_params, to_device(frames, pipe.device), self._support_kv, self._state,
+            self._support_mask)
+        return packed
+
+    def _graph_body(self, frames: torch.Tensor) -> torch.Tensor:
+        """The step over the static buffers: writes the new state into them."""
+        packed, new = self.pipe._step_batch_impl(self.pipe._device_params, frames,
+                                                 self._support_kv, self._state,
+                                                 self._support_mask)
+        for dst, src in zip(_tensors(self._state), _tensors(new), strict=True):
+            dst.copy_(src)
+        return packed
+
+
+class FusedPipeline(_StaticSteps):
     def __init__(
         self,
         config: Optional[PipelineConfig] = None,
@@ -158,13 +222,16 @@ class FusedPipeline:
         device: str = "cuda",
         cuda_graphs: Optional[bool] = None,
     ):
-        """cuda_graphs: replay each batch size's step as a CUDA graph over
+        """input_format: "i420" ((H*3/2, W) uint8 planar YUV, decoded on the
+        card by the fused kernel) or "bgr" ((H, W, 3) uint8).
+        cuda_graphs: replay each batch size's step as a CUDA graph over
         static buffers (the default on the card); False runs each step
         eagerly. On the CPU the default is the plain eager step, and True
         runs the static-buffer step eagerly."""
         self.config = config or PipelineConfig()
-        if input_format != "i420":
-            raise NotImplementedError("the port takes I420 frames only")
+        if input_format not in ("i420", "bgr"):
+            raise ValueError(f"input_format must be 'i420' or 'bgr', not {input_format!r}")
+        self.input_format = input_format
         if self.config.main.input_type != "skeleton":
             raise NotImplementedError("the port runs skeleton mode only")
         pin_float32_matmul()
@@ -199,14 +266,22 @@ class FusedPipeline:
 
     # -------------------------------------------------------------- factory
 
-    def init_state(self) -> StreamState:
+    def init_state(self, lead: Tuple[int, ...] = ()) -> StreamState:
+        """A fresh state; ``lead=(S,)`` gives S independent streams."""
         cfg = self.config.ar
-        smooth = one_euro_gated_state((cfg.n_joints, 3), self.device) if cfg.smooth_poses else ()
+        lead = tuple(lead)
+        smooth = (one_euro_gated_state((cfg.n_joints, 3), self.device, lead)
+                  if cfg.smooth_poses else ())
         return StreamState(
-            window=torch.zeros((cfg.seq_len, cfg.trans_linear_in_dim), device=self.device),
-            n_valid=torch.zeros((), dtype=torch.int32, device=self.device),
+            window=torch.zeros(lead + (cfg.seq_len, cfg.trans_linear_in_dim), device=self.device),
+            n_valid=torch.zeros(lead, dtype=torch.int32, device=self.device),
             smooth=smooth,
         )
+
+    def frame_shape(self) -> Tuple[int, ...]:
+        """The shape of one input frame in this pipeline's format."""
+        h, w = self.hpe.frame_shape
+        return (h * 3 // 2, w) if self.input_format == "i420" else (h, w, 3)
 
     def _params(self) -> Dict[str, Any]:
         """The nets the step runs, cast once at the first ``start()``: a
@@ -223,50 +298,67 @@ class FusedPipeline:
     # ------------------------------------------------------------ the step
 
     def _decode_frame(self, frames: torch.Tensor):
-        """(B, H*3/2, W) uint8 I420 -> ((B, H, W, 3) BGR, (B, 1, S, S, 3) YOLO input).
-        On CUDA this launches the fused kernel; on CPU it runs its plain version."""
-        return fused_i420_inputs(frames, self.hpe.frame_shape[0], self.hpe.config.yolo_input_size)
+        """(B, H*3/2, W) uint8 I420 or (B, H, W, 3) uint8 BGR -> ((B, H, W, 3)
+        float BGR, (B, 1, S, S, 3) YOLO input). I420 on CUDA launches the
+        fused kernel, on the CPU its plain version; BGR has no kernel, as in JAX."""
+        size = self.hpe.config.yolo_input_size
+        if self.input_format == "i420":
+            return fused_i420_inputs(frames, self.hpe.frame_shape[0], size)
+        frames = frames.to(torch.float32)
+        return frames, yolo_preprocess(frames, size)
 
     @torch.inference_mode()
     def _step_batch_impl(self, params, frames, support_kv, state: StreamState, support_mask):
-        """B frames -> ((B, layout.size) packed float32, new state)."""
+        """B frames of one stream -> ((B, layout.size) packed float32, new
+        state). With a state of S streams (a leading axis S), (S, B) frames
+        -> ((S, B, layout.size), new state): the nets run on the S*B frames
+        at once, the recurrences per stream."""
         cfg = self.config.ar
-        b = frames.shape[0]
-        frames, yolo_in = self._decode_frame(frames)
+        lead = tuple(state.n_valid.shape)
+        t = len(lead)  # the time axis of the frames
+        b = frames.shape[t]
+        n = b * int(np.prod(lead, dtype=np.int64))
+        frames, yolo_in = self._decode_frame(frames.reshape((n,) + frames.shape[t + 1:]))
         pose, bbox, conf, found, visible = self.hpe._estimate_impl(params["hpe"], frames, yolo_in)
         pose_ok = found & visible
 
         distance = torch.linalg.norm(pose[:, 0], dim=-1) * 2.5
         rel_pose = pose - pose[:, :1]
 
+        def per_stream(x):  # (n, ...) -> (*lead, b, ...)
+            return x.reshape(lead + (b,) + x.shape[1:])
+
+        ok = per_stream(pose_ok)
         # causal pose smoothing before the batched embedding: good frames
         # tick the filter, no-detection frames leave it untouched
         smooth_state = state.smooth
         if cfg.smooth_poses:
+            rel = per_stream(rel_pose)
             smoothed = []
             for i in range(b):
-                smooth_state, r = one_euro_gated_step(smooth_state, rel_pose[i], pose_ok[i])
+                smooth_state, r = one_euro_gated_step(smooth_state, rel.select(t, i), ok.select(t, i))
                 smoothed.append(r)
-            rel_pose = torch.stack(smoothed)
+            rel_pose = torch.stack(smoothed, dim=t).reshape(rel_pose.shape)
 
-        features = params["ar"].embed_frame(rel_pose.reshape(b, -1))
+        features = per_stream(params["ar"].embed_frame(rel_pose.reshape(n, -1)))
 
         # ring recurrence, pushed only on good frames
         window, n_valid = state.window, state.n_valid
         windows, n_valids = [], []
         for i in range(b):
-            pushed = torch.cat([window[1:], features[i:i + 1]], dim=0)
-            window = torch.where(pose_ok[i], pushed, window)
-            n_valid = torch.where(pose_ok[i], torch.clamp(n_valid + 1, max=cfg.seq_len), n_valid)
+            ok_i = ok.select(t, i)
+            pushed = torch.cat([window[..., 1:, :], features.select(t, i).unsqueeze(-2)], dim=-2)
+            window = torch.where(ok_i.reshape(ok_i.shape + (1, 1)), pushed, window)
+            n_valid = torch.where(ok_i, torch.clamp(n_valid + 1, max=cfg.seq_len), n_valid)
             windows.append(window)
             n_valids.append(n_valid)
-        windows = torch.stack(windows)
-        n_valids = torch.stack(n_valids)
+        windows = torch.stack(windows, dim=t).reshape((n,) + window.shape[t:])
+        n_valids = torch.stack(n_valids, dim=t).reshape(n)
 
         s_k, s_v = support_kv
         out = params["ar"].match_features(
-            windows, support_mask.expand(b, -1), s_k.expand(b, *s_k.shape),
-            s_v.expand(b, *s_v.shape))
+            windows, support_mask.expand(n, -1), s_k.expand(n, *s_k.shape),
+            s_v.expand(n, *s_v.shape))
         probs = torch.softmax(out["logits"], dim=-1)
         is_true = out["is_true"][:, 0]
         ar_ready = (n_valids >= cfg.seq_len) & support_mask.any()
@@ -286,12 +378,7 @@ class FusedPipeline:
             f = self.focus._forward_impl(params["focus"], frames)
             values.update({name: f[key] for name, (key, _) in FOCUS_FIELDS.items()})
         new_state = StreamState(window=window, n_valid=n_valid, smooth=smooth_state)
-        return self.layout.pack(values, b), new_state
-
-    def _step_impl(self, params, frame, support_kv, state, support_mask):
-        """One (H*3/2, W) frame -> ((layout.size,) packed, new state)."""
-        packed, state = self._step_batch_impl(params, frame[None], support_kv, state, support_mask)
-        return packed[0], state
+        return self.layout.pack(values, n).reshape(lead + (b, self.layout.size)), new_state
 
     # ------------------------------------------------------------ host API
 
@@ -299,7 +386,6 @@ class FusedPipeline:
     def start(self) -> None:
         """Materialize support features, support K/V and state; call after
         support-set edits. With static buffers, copies them into the buffers."""
-        state = self.init_state()
         if self.ar.support_features is None and self.ar.support_mask.any():
             self.ar.support_features = self.ar.embed_support()
         elif self.ar.support_features is None:
@@ -308,51 +394,43 @@ class FusedPipeline:
                 (cfg.way, cfg.seq_len, cfg.trans_linear_in_dim), device=self.device)
         s_k, s_v = self.ar.model.support_kv(self.ar.support_features[None])
         mask = torch.from_numpy(self.ar.support_mask.copy()).to(self.device)
-        fresh = (state, (s_k[0], s_v[0]), mask)
-        if self.cuda_graphs and self._support_mask is not None:
-            current = (self._state, self._support_kv, self._support_mask)
-            for dst, src in zip(_tensors(current), _tensors(fresh), strict=True):
-                dst.copy_(src)
-        else:
-            self._state, self._support_kv, self._support_mask = fresh
+        self._assign(_state=self.init_state(), _support_kv=(s_k[0], s_v[0]), _support_mask=mask)
         self._params()
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(frames, np.uint8)).to(self.device)
+    @property
+    def pipe(self) -> "FusedPipeline":
+        """The pipeline whose step and nets run (itself; ``_StaticSteps``)."""
+        return self
 
     @torch.inference_mode()
-    def dispatch(self, frame: np.ndarray) -> torch.Tensor:
-        """Enqueue one frame; returns the packed vector (on the device)."""
-        if self.cuda_graphs:
-            return self._static_step(frame[None])[0]
-        packed, self._state = self._step_impl(
-            self._device_params, self._upload(frame), self._support_kv, self._state,
-            self._support_mask)
-        return packed
+    def dispatch(self, frame: np.ndarray) -> HostCopy:
+        """Enqueue one frame; returns the token of its packed vector's copy
+        to the host, started right after the step."""
+        return HostCopy(self._enqueue(frame[None], 1)[0])
+
+    @torch.inference_mode()
+    def dispatch_batch(self, frames: np.ndarray) -> HostCopy:
+        """Enqueue B frames as one step; the token's rows are the frames'."""
+        return HostCopy(self._enqueue(frames, len(frames)))
 
     def step(self, frame: np.ndarray) -> Dict[str, np.ndarray]:
         """One frame, synchronous: dispatch then read the packed vector."""
         return self.fetch(self.dispatch(frame))
 
-    def fetch(self, packed: torch.Tensor) -> Dict[str, np.ndarray]:
-        """One device->host copy; host-side field slicing."""
-        return self.layout.unpack(packed.cpu().numpy())
+    def fetch(self, token: HostCopy) -> Dict[str, np.ndarray]:
+        """Wait for one dispatched frame's host copy; host-side field slicing."""
+        return self.layout.unpack(token.numpy())
 
-    @torch.inference_mode()
-    def dispatch_batch(self, frames: np.ndarray) -> torch.Tensor:
-        if self.cuda_graphs:
-            return self._static_step(frames)
-        packed, self._state = self._step_batch_impl(
-            self._device_params, self._upload(frames), self._support_kv, self._state,
-            self._support_mask)
-        return packed
-
-    def _static_step(self, frames: np.ndarray) -> torch.Tensor:
-        """(B, H*3/2, W) frames through the static buffers -> (B, size) packed."""
-        graph = self._graphs.get(frames.shape[0])
-        if graph is None:
-            graph = self._graphs[frames.shape[0]] = _StepGraph(self, frames.shape[0])
-        return graph.run(frames)
+    def stream(self, frames: Iterable[np.ndarray]) -> Iterator[Dict[str, np.ndarray]]:
+        """Double-buffered streaming: frame i+1 is enqueued before frame i is read."""
+        pending = None
+        for frame in frames:
+            token = self.dispatch(frame)
+            if pending is not None:
+                yield self.fetch(pending)
+            pending = token
+        if pending is not None:
+            yield self.fetch(pending)
 
     def stream_batched(self, frames: Iterable[np.ndarray],
                        batch_size: int = 8) -> Iterator[Dict[str, np.ndarray]]:
@@ -360,21 +438,29 @@ class FusedPipeline:
         per ``batch_size`` frames; batch i+1 is enqueued before batch i is
         read. A partial tail batch runs as single-frame steps."""
         buf: list = []
-        pending: Optional[torch.Tensor] = None
+        pending: Optional[HostCopy] = None
         for frame in frames:
             buf.append(frame)
             if len(buf) == batch_size:
-                packed = self.dispatch_batch(np.stack(buf))
+                token = self.dispatch_batch(np.stack(buf))
                 buf = []
                 if pending is not None:
-                    for row in pending.cpu().numpy():
+                    for row in pending.numpy():
                         yield self.layout.unpack(row)
-                pending = packed
+                pending = token
         if pending is not None:
-            for row in pending.cpu().numpy():
+            for row in pending.numpy():
                 yield self.layout.unpack(row)
         for frame in buf:
             yield self.fetch(self.dispatch(frame))
+
+    def warmup(self, n: int = 2) -> None:
+        """``n`` steps on an empty frame (with graphs: the B=1 capture), then
+        a fresh state: the dummy frames must not fill the live AR window."""
+        dummy = np.zeros(self.frame_shape(), np.uint8)
+        for _ in range(n):
+            self.step(dummy)
+        self._assign(_state=self.init_state())
 
     def decode(self, outputs: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Unpacked outputs -> the orchestrator's elements contract."""
@@ -408,20 +494,21 @@ class FusedPipeline:
 
 
 class _StepGraph:
-    """The step at one batch size over the pipeline's static buffers.
+    """A step at one input shape over static buffers.
 
-    ``run`` copies the frames into this size's static input, then runs the
-    step: eagerly on its first call and on the CPU, by replaying the CUDA
-    graph captured right after that first call otherwise. The step writes
-    the new recurrent state into the pipeline's state buffers.
+    ``run`` copies the frames into this shape's static input, then runs
+    ``body`` (static frames -> packed rows; it writes the new recurrent
+    state into the owner's state buffers): eagerly on its first call and on
+    the CPU, by replaying the CUDA graph captured right after that first
+    call otherwise. A replay returns the graph's static output, which the
+    next replay overwrites: the caller starts its host copy at once. The
+    owner passes ``body`` on each call and this object keeps no reference
+    to it, so an owner and its graphs form no cycle and are freed with it.
     """
 
-    def __init__(self, pipe: FusedPipeline, batch: int):
-        self.pipe = pipe
-        cam = pipe.config.main
-        shape = (batch, cam.cam_height * 3 // 2, cam.cam_width)
-        self.frames = torch.empty(shape, dtype=torch.uint8, device=pipe.device)
-        self.on_card = pipe.device.type == "cuda"
+    def __init__(self, device: torch.device, shape: Tuple[int, ...]):
+        self.frames = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.on_card = device.type == "cuda"
         if self.on_card:
             self.staging = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
             self.uploaded = torch.cuda.Event()
@@ -429,15 +516,7 @@ class _StepGraph:
         self.out: Optional[torch.Tensor] = None
         self.launches = {kernel: 0 for kernel in KERNELS}  # launches recorded in the graph
 
-    def _body(self) -> torch.Tensor:
-        p = self.pipe
-        packed, new = p._step_batch_impl(p._device_params, self.frames, p._support_kv, p._state,
-                                         p._support_mask)
-        for dst, src in zip(_tensors(p._state), _tensors(new), strict=True):
-            dst.copy_(src)
-        return packed
-
-    def run(self, frames: np.ndarray) -> torch.Tensor:
+    def run(self, frames: np.ndarray, body) -> torch.Tensor:
         frames = np.ascontiguousarray(frames, np.uint8)
         if self.on_card:
             self.uploaded.synchronize()  # the previous upload has left the pinned buffer
@@ -450,17 +529,17 @@ class _StepGraph:
             self.graph.replay()
             for kernel, n in self.launches.items():
                 kernel.launches += n
-            return self.out.clone()  # the next replay overwrites the static output
-        packed = self._body()
+            return self.out
+        packed = body(self.frames)
         if self.on_card:
-            self._capture()
+            self._capture(body)
         return packed
 
-    def _capture(self) -> None:
+    def _capture(self, body) -> None:
         before = {kernel: kernel.launches for kernel in KERNELS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.out = self._body()
+            self.out = body(self.frames)
         # capture records the launches and runs none of them
         for kernel, n in before.items():
             self.launches[kernel] = kernel.launches - n

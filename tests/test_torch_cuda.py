@@ -5,6 +5,8 @@ JAX nor the JAX package, so it runs on a machine without them:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -208,3 +210,116 @@ def test_head_pose_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         head_pose.focus_geometry(lms, k, **kwargs)
     assert head_pose.focus_geometry.launches == before
+
+
+# The serving surface on the card: the overlap waits for the frame it reads
+# and no other, results already handed out stay put, the module path's
+# dispatch does not wait for the card, and the multi-stream graphs equal
+# their eager steps.
+
+
+def _busy(seconds: float = 0.5) -> None:
+    """Keep the current stream busy for about ``seconds`` (a 2 GHz clock)."""
+    torch.cuda._sleep(int(seconds * 2e9))
+
+
+def test_overlap_fetches_without_a_full_sync(ci_pipes):
+    graphs, _, frames = ci_pipes
+    graphs.start()
+    graphs.step(frames[0])  # B=1 is captured
+    graphs.start()
+    first = graphs.dispatch(frames[0])
+    second = graphs.dispatch(frames[1])
+    _busy()
+    out = graphs.fetch(first)
+    assert not torch.cuda.current_stream().query(), "fetch waited for the later work"
+    held = {k: np.copy(v) for k, v in out.items()}
+    graphs.fetch(second)
+    for f in frames[2:4]:  # later replays reuse the static output
+        graphs.fetch(graphs.dispatch(f))
+    for k, v in held.items():
+        np.testing.assert_array_equal(out[k], v, err_msg=k)
+    graphs.start()
+    np.testing.assert_array_equal(graphs.step(frames[0])["pose"], held["pose"])
+
+
+@pytest.mark.parametrize("module", ["hpe", "focus"])
+def test_estimate_async_does_not_wait_for_the_card(ci_pipes, module):
+    """The module path's dispatch (the upload, the eager forward, the
+    packed result's host copy) makes no call that waits for the card:
+    PyTorch's sync debug mode raises on one, and the stream is still busy
+    after it. One module at a time: the eager forwards launch kernels one
+    by one, and two of them behind the busy stream fill the launch queue,
+    whose backpressure waits too (a reason to graph the module path)."""
+    from isbfsar_tpu_torch.ops.image import i420_to_bgr
+    from isbfsar_tpu_torch.utils.transfer import to_device
+
+    graphs, _, frames = ci_pipes
+    det = getattr(graphs, module)
+    h = graphs.hpe.frame_shape[0]
+    bgr = torch.round(i420_to_bgr(torch.from_numpy(frames[1]), h)).to(torch.uint8).numpy()
+    for _ in range(3):  # warm: a first call's allocations wait for the card
+        det.estimate_collect(det.estimate_async(to_device(bgr, det.device)))
+    torch.cuda.synchronize()
+    _busy()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        token = det.estimate_async(to_device(bgr, det.device))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_s = time.perf_counter() - t
+    assert not torch.cuda.current_stream().query(), f"the dispatch took {host_s:.3f} s"
+    res = det.estimate_collect(token)
+    if module == "hpe":
+        assert res is None or res["pose"].shape == (30, 3)
+    else:
+        assert res is not None  # a face frame
+
+
+def test_multistream_graphs_equal_eager(ci_pipes):
+    from isbfsar_tpu_torch.serving import MultiStreamPipeline
+
+    graphs, eager, frames = ci_pipes
+    ticks = [np.stack([frames[(i + 3 * s) % len(frames)] for s in range(3)]) for i in range(10)]
+    runs, multis = [], []
+    for pipe in (graphs, eager):
+        m = MultiStreamPipeline(n_streams=3, pipe=pipe)
+        multis.append(m)
+        m.start()
+        before = [k.launches for k in (fused_input.fused_i420_inputs, head_pose.focus_geometry)]
+        out = [m.step(t) for t in ticks[:2]]
+        out += list(m.stream_batched(iter(ticks[2:10]), batch_size=4))
+        out.append(m.step(ticks[0]))  # the B=1 graph again
+        after = [k.launches for k in (fused_input.fused_i420_inputs, head_pose.focus_geometry)]
+        assert [a - b for a, b in zip(after, before)] == [5, 5]  # one per dispatch
+        runs.append(out)
+    assert sorted(multis[0]._graphs) == [(3, 1), (3, 4)] and not multis[1]._graphs
+    assert all(g.graph is not None for g in multis[0]._graphs.values()) and len(runs[0]) == 11
+    for i, (a, b) in enumerate(zip(*runs, strict=True)):
+        for s, (x, y) in enumerate(zip(a, b, strict=True)):
+            for key in y:
+                np.testing.assert_array_equal(x[key], y[key], err_msg=f"tick {i} stream {s} {key}")
+
+
+def test_bgr_graphs_equal_eager(ci_pipes):
+    """BGR input: no I420 kernel, the plain YOLO input inside the graph
+    (its resize weights live on the card, so capture holds them)."""
+    from isbfsar_tpu_torch.ops.image import i420_to_bgr
+    from isbfsar_tpu_torch.pipeline import FusedPipeline
+
+    graphs, _, frames = ci_pipes
+    h = graphs.hpe.frame_shape[0]
+    bgr = [torch.round(i420_to_bgr(torch.from_numpy(f), h)).to(torch.uint8).numpy()
+           for f in frames]
+    outs = []
+    for cuda_graphs in (True, False):
+        pipe = FusedPipeline(graphs.config, hpe=graphs.hpe, ar=graphs.ar, focus=graphs.focus,
+                             input_format="bgr", device="cuda", cuda_graphs=cuda_graphs)
+        before = fused_input.fused_i420_inputs.launches
+        outs.append(_run(pipe, bgr))
+        assert fused_input.fused_i420_inputs.launches == before
+    for i, (a, b) in enumerate(zip(*outs, strict=True)):
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=f"output {i} {key}")
+

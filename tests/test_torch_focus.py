@@ -344,6 +344,37 @@ def test_close_far_and_patience_vote_match_jax(detectors):
     assert {f for _, f, _ in seen} == {True, False} and {v for _, _, v in seen} == {True, False}
 
 
+def test_estimate_collect_reads_all_fields_in_one_copy(detectors):
+    """estimate_collect packs the fields into one device -> host copy; the
+    Face and the verdicts equal the field-by-field reads it replaced, bit
+    for bit, on the face frames (uint8, as estimate_async takes them), the
+    image only when asked for."""
+    _, td, frames = detectors
+    frames = np.round(frames).astype(np.uint8)
+    twin = FocusDetector(td.config, params=None, frame_shape=td.frame_shape, device="cpu")
+    twin.nets, twin.k_matrix = td.nets, td.k_matrix
+    td.focuses, twin.focuses = [], []
+    for frame in list(frames) + list(frames[::-1]):
+        ours = td.estimate_collect(td.estimate_async(frame))
+        fields = {k: v[0] for k, v in twin._forward_impl(
+            twin.nets, torch.from_numpy(frame)[None]).items()}
+        host = {k: v.numpy() for k, v in fields.items() if k != "normalized_image"}
+        ref = twin.estimate_collect(host)  # host arrays: no copy at all
+        assert (ours is None) == (ref is None) and ours is not None
+        assert ours[0] == ref[0] and td.is_focus == twin.is_focus and td.is_close == twin.is_close
+        for key, value in vars(ref[1]).items():
+            got = getattr(ours[1], key)
+            if value is None:
+                assert got is None
+            else:
+                np.testing.assert_array_equal(got, value, err_msg=key)
+                assert np.asarray(got).dtype == np.asarray(value).dtype, key
+    token = td.estimate_async(frames[0])
+    assert set(token) == {"fields", "normalized_image"}
+    image = td.estimate_collect(token, return_image=True)[1].normalized_image
+    assert image.shape == (td.config.gaze_image_size,) * 2 + (3,)
+
+
 def test_detector_built_alone_runs_float32():
     """A FocusDetector built without a pipeline turns TF32 off itself:
     PyTorch's default runs float32 cuDNN convolutions in TF32."""

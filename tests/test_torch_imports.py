@@ -4,7 +4,8 @@ nothing of the JAX package ``isbfsar_tpu``. A subprocess refuses those
 imports, imports every module of the port and chip_smoke, and runs the
 slice with focus on the CPU for one frame at CI size, with seeded torch
 weights for the pose stack and the focus-ci bundle read by the port's own
-decoder."""
+decoder, then the serving layer on the same slice: the orchestrator's fused
+and module paths for a frame each, and a multi-stream step."""
 
 import os
 import subprocess
@@ -61,6 +62,20 @@ SCRIPT = textwrap.dedent(r"""
     assert out["f_found"] in (0.0, 1.0) and out["f_landmarks"].shape == (6, 2)
     assert all(np.isfinite(out[k]).all() for k in out if k.startswith("f_"))
     pipe.decode(out)
+
+    from isbfsar_tpu_torch.runtime.orchestrator import Orchestrator
+    from isbfsar_tpu_torch.runtime.serve import parse_args
+    from isbfsar_tpu_torch.serving import MultiStreamPipeline
+
+    bgr = np.random.default_rng(1).integers(0, 256, (120, 160, 3), np.uint8)
+    fused = Orchestrator(cfg, fused=pipe, fused_overlap=False)
+    assert fused.get_frame(img=bgr)["fps"] > 0
+    module = Orchestrator(cfg, hpe=hpe, focus=focus, ar=pipe.ar, device="cpu")
+    assert "actions" in module.get_frame(img=bgr)
+    multi = MultiStreamPipeline(n_streams=2, pipe=pipe)
+    multi.start()
+    assert len(multi.step(np.stack([frame, frame]))) == 2
+    assert parse_args(["--fused"]).device == "cuda"
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
@@ -74,4 +89,4 @@ def test_port_and_chip_smoke_import_nothing_the_gpu_machine_lacks():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
-    assert int(proc.stdout.split()[-1]) >= 20  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 40  # every module of the port was imported
