@@ -57,7 +57,26 @@ Phases, each timed; any failure exits non-zero and prints no result:
    ``MultiStreamPipeline`` with 4 streams at B=16, each stream against a
    single-stream twin that keeps its frames in their rows of the
    multi-stream step (``TOL_BATCHED``); both kernels' launches are counted
-   on every path and held to the dispatches.
+   on every path and held to the dispatches;
+7. train: the recognizer's trainer and offline evaluation at the
+   production ``ARConfig`` (way 5, seq_len 16, 30 joints, DISC head, batch
+   32, lr 1e-2) on two synthetic trees written by ``train/synthetic.py``
+   (30 classes x 4 clips to train on: the train CLI's 80/20 split then
+   leaves 6 validation classes, which a 5-way episode and its unknown class
+   need; 5 classes x 4 clips held out). ``Trainer.fit`` runs 3 epochs of 5
+   steps (``TRAIN_N_TASK``; epoch 0 validates), its ``train/fs_loss`` must
+   fall from epoch 1 to 2, and it must write {1,2}.msgpack, which
+   ``load_checkpoint`` reads back as the trained weights. The first 5 train
+   steps run on the card and on the CPU from one init on the same batches
+   (losses and every parameter within ``TOL_TRAIN``, ``fs_correct`` and the
+   gate equal), and so do ``evaluate_fsos`` (k 5, 3 repeats, batch 8) and
+   ``calibrate_os_threshold`` with the trained weights (scores within
+   ``TOL_FSOS_SCORE``; ``known``, ``fs_correct``, the metrics and the
+   threshold equal). The train and eval CLIs run on the card as
+   subprocesses, beside those comparisons. It prints the train step's p50
+   and episodes/s (the card synchronised around each step of ``fit``), the
+   loader's time per batch beside it, and FSOS queries/s. Neither kernel is
+   on this path: both counts must stay 0.
 
 The three weight files are required: a missing one fails the run.
 
@@ -75,6 +94,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -138,6 +158,19 @@ SPACING = 120
 SERVE_DEADLINE_S = 420  # the service's start, warm-up and whole script
 SERVING_FRAMES = 40
 STREAMS, STREAM_BATCH, STREAM_TICKS = 4, 16, 64
+# Phase 7: the card against the CPU on the first 5 train steps from one
+# init and batch (float32, no TF32), and on the FSOS evaluation with the
+# trained weights. Two runs on an H100 read at most 1.19e-7 in fs_loss,
+# 5.96e-8 in os_loss and in the parameters, and 1.19e-7 in the FSOS scores;
+# tests/test_torch_cuda.py's accumulated gradients (accumulation over 2)
+# read 6.71e-8. The limits are three to five times that.
+TOL_TRAIN = {"fs_loss": 3e-7, "os_loss": 3e-7, "params": 3e-7, "acc_grads": 3e-7}
+TOL_FSOS_SCORE = 5e-7
+TRAIN_STEPS_CHECKED = 5
+# 5 steps of 32 episodes an epoch (the JAX defaults' epoch is 10000 // 32):
+# the loader reads 3,584 .npy files a batch, 1.8 s on the card machine's host
+TRAIN_N_TASK = 160
+FSOS_KW = dict(k=5, n_repeats=3, batch_size=8, collect_raw=True)
 EXACT = ("pose_ok", "ar_ready", "f_found")
 KERNELS = (fused_input.fused_i420_inputs, head_pose.focus_geometry)
 
@@ -691,6 +724,183 @@ def run_serving(card: str) -> dict:
     return by_path
 
 
+def train_trees(root: str) -> tuple:
+    """Phase 7's synthetic trees: (training tree, held-out tree)."""
+    from isbfsar_tpu_torch.train.synthetic import generate_dataset
+
+    train, held = os.path.join(root, "train"), os.path.join(root, "held")
+    generate_dataset(train, n_classes=30, clips_per_class=4, seed=0)
+    generate_dataset(held, n_classes=5, clips_per_class=4, seed=1)
+    return train, held
+
+
+def check_train_steps(cfg, batches: list, root: str) -> dict:
+    """The first train steps on the card and on the CPU from one init on the
+    same batches; returns the largest differences."""
+    from isbfsar_tpu_torch.train.trainer import Trainer
+
+    pair = {d: Trainer(cfg, log_dir=os.path.join(root, f"pair_{d}"), use_wandb=False, seed=1,
+                       device=d) for d in ("cuda", "cpu")}
+    err = {k: 0.0 for k in ("fs_loss", "os_loss", "params")}
+    for i, batch in enumerate(batches):
+        got = {d: {k: v.detach().cpu().numpy() for k, v in t.step(batch).items()}
+               for d, t in pair.items()}
+        for k in ("fs_correct", "os_weights"):
+            if not np.array_equal(got["cuda"][k], got["cpu"][k]):
+                raise AssertionError(f"train step {i}: {k} differs between the card and the CPU")
+        for k in ("fs_loss", "os_loss"):
+            err[k] = max(err[k], float(abs(got["cuda"][k] - got["cpu"][k])))
+    cpu = pair["cpu"].model.state_dict()
+    for name, t in pair["cuda"].model.state_dict().items():
+        err["params"] = max(err["params"], float((t.cpu() - cpu[name]).abs().max()))
+    return err
+
+
+def check_fsos(cfg, params, card: dict, train: str, held: str) -> tuple:
+    """The card's evaluate_fsos results against the CPU's, and
+    calibrate_os_threshold on both; returns (max score difference, the
+    card's calibration)."""
+    from isbfsar_tpu_torch.train.fsos import calibrate_os_threshold, evaluate_fsos
+
+    cpu = evaluate_fsos(cfg, params, held, held, device="cpu", **FSOS_KW)
+    err = 0.0
+    for a, b in zip(card["_raw"], cpu["_raw"], strict=True):
+        for k in ("known", "fs_correct"):
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"FSOS: {k} differs between the card and the CPU")
+        err = max(err, float(np.max(np.abs(a["scores"] - b["scores"]))))
+    for k in ("FSOS-ACC", "FS-ACC", "OS-ACC"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"FSOS: {k} {card[k]} on the card, {cpu[k]} on the CPU")
+    calib = {d: calibrate_os_threshold(cfg, params, train, k=5, n_repeats=2, batch_size=8,
+                                       device=d) for d in ("cuda", "cpu")}
+    if calib["cuda"] != calib["cpu"]:
+        raise AssertionError(f"calibration: {calib['cuda']} on the card, {calib['cpu']} on the CPU")
+    return err, calib["cuda"]
+
+
+def run_cli(args: list, timeout: float) -> str:
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                          timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def run_train(card: str) -> dict:
+    """Phase 7: train and evaluate the recognizer on the card; returns the
+    kernels' launches on this path (0 each)."""
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.dataloader import EpisodicSampler, batch_iterator
+    from isbfsar_tpu_torch.train.fsos import evaluate_fsos, summarize
+    from isbfsar_tpu_torch.train.trainer import Trainer
+    from isbfsar_tpu_torch.utils import checkpoint
+
+    cfg = ARConfig(n_task=TRAIN_N_TASK)
+    load_s, step_s, first = [], [], []
+
+    def timed_batches(sampler, epoch):
+        """The loader's batches, timing each batch's load and, with the card
+        synchronised around it, each train step."""
+        train = sampler is samplers[0]
+        it = batch_iterator(sampler, cfg.batch_size, seed=epoch)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            if train:
+                load_s.append(time.perf_counter() - t)
+                first.extend([batch][:TRAIN_STEPS_CHECKED - len(first)])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            yield batch
+            torch.cuda.synchronize()
+            if train:
+                step_s.append(time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        train, held = train_trees(root)
+        log(f"[train] synthetic trees written in {time.perf_counter() - t:.2f} s")
+        samplers = [EpisodicSampler(train, k=cfg.way, n_task=cfg.n_task, l=cfg.seq_len, seed=s)
+                    for s in (0, 1)]
+        zero_launches()
+        run = os.path.join(root, "run")
+        trainer = Trainer(cfg, *samplers, log_dir=run, use_wandb=False)
+        t = time.perf_counter()
+        trainer.fit(n_epochs=3, batches_fn=timed_batches)
+        fit_s = time.perf_counter() - t
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            history = [json.loads(line) for line in f]
+        loss = [h.get("train/fs_loss") for h in history]
+        log(f"[train] fit: 3 epochs x {cfg.n_task // cfg.batch_size} steps at batch "
+            f"{cfg.batch_size} in {fit_s:.2f} s; epoch summaries: {history}")
+        if not (loss[0] is None and loss[2] < loss[1]):
+            raise AssertionError(f"train/fs_loss did not fall from epoch 1 to 2: {loss}")
+        files = sorted(os.listdir(trainer.ckpt_dir))
+        if files != ["1.json", "1.msgpack", "2.json", "2.msgpack"]:
+            raise AssertionError(f"fit wrote {files}")
+        newest = checkpoint.latest_checkpoint(trainer.ckpt_dir)
+        state = checkpoint.load_checkpoint(newest, {"params": None, "batch_stats": None,
+                                                    "opt_state": None})
+        restored = weights.convert_variables({"params": state["params"]})
+        for name, value in trainer.model.state_dict().items():
+            if not torch.equal(restored[name], value.cpu()):
+                raise AssertionError(f"{newest}: {name} is not the trained value")
+
+        params = {"params": state["params"]}
+        t = time.perf_counter()
+        fsos_card = evaluate_fsos(cfg, params, held, held, device="cuda", **FSOS_KW)
+        qps = sum(r["scores"].size for r in fsos_card["_raw"]) / (time.perf_counter() - t)
+
+        # the CLIs run beside the untimed comparisons with the CPU
+        def clis():
+            cli_log = os.path.join(root, "cli")
+            t = time.perf_counter()
+            run_cli(["isbfsar_tpu_torch.train.train_cli", "--data", train, "--epochs", "2",
+                     "--n-task", "32", "--log-dir", cli_log], 300)
+            out = run_cli(["isbfsar_tpu_torch.train.eval_cli", "fsos", "--data", held,
+                           "--checkpoint", checkpoint.latest_checkpoint(cli_log + "/checkpoints"),
+                           "--calibrate", train, "--repeats", "2"], 300)
+            return out, time.perf_counter() - t
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            cli = pool.submit(clis)
+            err_fsos, calib = check_fsos(cfg, params, fsos_card, train, held)
+            err_train = check_train_steps(cfg, first, root)
+            out, cli_s = cli.result(timeout=660)
+        lines = [json.loads(line) for line in out.strip().splitlines()]
+        if len(lines) != 3 or "os_calibration" not in lines[1]:
+            raise AssertionError(f"eval_cli printed {out!r}")
+        counts = launches()
+
+    step_ms, load_ms = p50_ms(step_s), p50_ms(load_s)
+    log(f"[train] train step at batch {cfg.batch_size} (way {cfg.way}, seq_len {cfg.seq_len}, "
+        f"the card synchronised around each): p50 {step_ms:.3f} ms (min {min(step_s) * 1e3:.3f} "
+        f"ms) over the {len(step_s)} steps of fit, {cfg.batch_size / step_ms * 1e3:.1f} "
+        f"episodes/s; batch_iterator p50 {load_ms:.3f} ms per batch ({cfg.batch_size} x 7 clips "
+        f"x 16 np.load) = {load_ms / step_ms:.2f}x the step, {load_ms / (load_ms + step_ms):.3f} "
+        f"of the loop; {card}")
+    log(f"[train] the card vs the CPU over {len(first)} steps: max|diff| "
+        + " ".join(f"{k}={v:.3g} (limit {TOL_TRAIN[k]:g})" for k, v in err_train.items())
+        + "; fs_correct and the gate equal")
+    log(f"[train] FSOS on the card (k 5, 3 repeats, batch 8, trained weights): "
+        f"{summarize(fsos_card)}, "
+        f"{qps:.1f} queries/s (host loading included); scores vs the CPU max|diff| "
+        f"{err_fsos:.3g} (limit {TOL_FSOS_SCORE:g}); known, fs_correct, metrics equal; "
+        f"calibrated {calib}, equal on the CPU; {card}")
+    log(f"[train] train_cli (2 epochs, n_task 32) and eval_cli fsos --calibrate on the card: "
+        f"exit 0 in {cli_s:.1f} s; {lines}")
+    over = [f"{k} {v} > {TOL_TRAIN[k]}" for k, v in err_train.items() if not v <= TOL_TRAIN[k]]
+    if not err_fsos <= TOL_FSOS_SCORE:
+        over.append(f"FSOS scores {err_fsos} > {TOL_FSOS_SCORE}")
+    if over:
+        raise AssertionError("the card vs the CPU: " + "; ".join(over))
+    check_launches("train and offline eval", counts, 0)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -729,6 +939,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_serving(card))
     phases["serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path["Trainer.fit/step, evaluate_fsos, calibrate_os_threshold, CLIs"] = run_train(card)
+    phases["train"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

@@ -1,16 +1,17 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the fields of ``isbfsar_tpu/configs.py`` that the ported slice
-reads (I420 or BGR frame -> pose -> TRX match -> focus, and the serving
-layer around it), with the same defaults. The port keeps its own copy so it
-imports nothing of the JAX package.
+reads (I420 or BGR frame -> pose -> TRX match -> focus, the serving layer
+around it, and the recognizer's trainer and evaluators), with the same
+defaults. The port keeps its own copy so it imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -90,6 +91,28 @@ class ARConfig:
     temp_set: Tuple[int, ...] = (2,)
     pe_scale_factor: float = 0.1
     smooth_poses: bool = True
+    # episodes and the transformer's dropout
+    shot: int = 1
+    query_per_class: int = 1
+    trans_dropout: float = 0.0
+    # training (train/trainer.py)
+    initial_lr: float = 1e-2
+    n_task: int = 10000
+    optimize_every: int = 1
+    batch_size: int = 32
+    n_epochs: int = 10000
+    start_discriminator_after_epoch: int = 0
+    first_milestone: int = 10000
+    second_milestone: int = 10000
+    eval_every_n_epoch: int = 10
+    checkpoint_dir: Optional[str] = None
+    ckpt_backend: str = "msgpack"  # the port writes msgpack only
+    data_path: Optional[str] = None
+    compute_dtype: str = "float32"
+    remat: bool = False  # rgb extractor only; the port trains skeleton mode
+    # open-set accept threshold for the live display; train/fsos.py::
+    # calibrate_os_threshold picks one on training classes
+    os_threshold: float = 0.66
 
     @property
     def trans_linear_in_dim(self) -> int:
@@ -97,7 +120,9 @@ class ARConfig:
 
     @staticmethod
     def for_input(input_type: str, **kw) -> "ARConfig":
-        return ARConfig(input_type=input_type, seq_len=seq_len_for(input_type), **kw)
+        lr = 1e-2 if input_type == "skeleton" else 3e-4
+        return ARConfig(input_type=input_type, seq_len=seq_len_for(input_type), initial_lr=lr,
+                        **kw)
 
 
 @dataclasses.dataclass(frozen=True)

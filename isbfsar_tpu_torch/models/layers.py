@@ -7,11 +7,13 @@
   weights to it, as a Flax ``nn.Conv(dtype=...)`` does; ``padding="SAME"``
   pads like XLA (for stride 2 on even sizes: 0 before, 1 after).
 * :class:`LayerNorm` uses Flax's fast variance ``E[x²] - E[x]²`` and eps 1e-6.
-* :func:`init_random` fills a net with seeded random weights (LeCun normal
-  kernels, zero biases, identity normalization), as Flax initializes.
+* :func:`init_random` fills a net with seeded random weights (truncated
+  LeCun normal kernels, zero biases, identity normalization), as Flax
+  initializes.
 * :func:`pin_float32_matmul` turns TF32 off for matmuls and cuDNN
   convolutions (process-wide PyTorch state): where the JAX code computes in
-  float32 (``Precision.HIGHEST``), so must the port.
+  float32 (``Precision.HIGHEST``), so must the port; :func:`float32_device`
+  does so for the trainer and the evaluators.
 """
 
 from __future__ import annotations
@@ -79,13 +81,19 @@ class LayerNorm(nn.Module):
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
+# standard deviation of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_random(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded Flax-style initialization of every Conv, Linear and norm."""
     for m in module.modules():
         if isinstance(m, (Conv, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in))
+            # Flax's lecun_normal: a normal truncated at two deviations,
+            # widened so that the variance stays 1 / fan_in
+            std = 1.0 / math.sqrt(m.weight[0].numel()) / _TRUNCATED_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
@@ -99,3 +107,14 @@ def init_random(module: nn.Module, generator: torch.Generator) -> nn.Module:
 def pin_float32_matmul() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def float32_device(device) -> torch.device:
+    """``device`` for float32 work: a CUDA device without a card raises, and
+    on the card TF32 is turned off (:func:`pin_float32_matmul`)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} asked for, but no CUDA device is available")
+        pin_float32_matmul()
+    return device

@@ -5,6 +5,10 @@ over all C(seq_len, 2) frame pairs (K/V linears with LayerNorm on K,
 softmax over the query-tuple axis, negative mean squared distance logits)
 and the open-set Discriminator. The support set is a fixed (way,) buffer
 with a validity mask: invalid classes get -1e30 logits. All float32.
+
+``forward`` is the whole episode the trainer and the evaluators run;
+``support_kv`` and ``match_features`` are the streaming split the pipeline
+and the recognizer run, with the support K/V cached.
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ class TemporalCrossTransformer(nn.Module):
         norm_sq = torch.square(diff).sum(dim=(-2, -1))
         logits = -(norm_sq / self.tuples.shape[0])
         logits = torch.where(support_mask, logits, torch.full_like(logits, NEG_INF))
-        return {"logits": logits, "diffs": diff}
+        return {"logits": logits, "diffs": diff, "prototypes": proto, "attention": attn}
 
 
 class TRXOS(nn.Module):
@@ -116,18 +120,43 @@ class TRXOS(nn.Module):
         """(..., n_joints*3) root-relative skeletons -> (..., 256) features."""
         return self.sk_extractor(sk)
 
+    def extract_features(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """{"sk": (..., L, n_joints*3)} -> (..., L, 256)."""
+        return self.sk_extractor(data["sk"])
+
+    def forward(self, query_data, support_mask, support_data=None, support_features=None):
+        """A whole episode: query clips {"sk": (b, L, 90)} against a support
+        set given as clips {"sk": (b, way, L, 90)} or as their features
+        (b, way, L, D), exactly one of the two."""
+        query_features = self.extract_features(query_data)
+        if support_features is None:
+            support_features = self.extract_features(support_data)
+        return self.match_with_features(query_features, support_mask, support_features)
+
+    def match_with_features(self, query_features, support_mask, support_features):
+        """The match and open-set decision on embedded query (b, L, D) and
+        support (b, way, L, D) features: logits, is_true, prototypes,
+        support_features and attention."""
+        s_k, s_v = self.support_kv(support_features)
+        out = self.transformer.match(s_k, s_v, support_mask, query_features)
+        return {"logits": out["logits"], "is_true": self._decide(out),
+                "prototypes": out["prototypes"], "support_features": support_features,
+                "attention": out["attention"]}
+
     def support_kv(self, support_features):
         return self.transformer.support_kv(support_features)
 
     def match_features(self, query_features, support_mask, s_k, s_v):
         """Query windows (b, L, D) against cached K/V (b, way, T, out)."""
         out = self.transformer.match(s_k, s_v, support_mask, query_features)
+        return {"logits": out["logits"], "is_true": self._decide(out)}
+
+    def _decide(self, out):
+        """The open-set score of the best-matching class: the discriminator
+        on its tuple differences, or exp of its logit."""
         logits = out["logits"]
-        b = logits.shape[0]
         chosen = logits.argmax(dim=1)
-        chosen_diff = out["diffs"][torch.arange(b, device=logits.device), chosen]
+        chosen_diff = out["diffs"][torch.arange(logits.shape[0], device=logits.device), chosen]
         if self.config.model == "DISC":
-            decision = self.discriminator(chosen_diff)
-        else:
-            decision = torch.exp(logits.max(dim=1, keepdim=True).values)
-        return {"logits": logits, "is_true": decision}
+            return self.discriminator(chosen_diff)
+        return torch.exp(logits.max(dim=1, keepdim=True).values)

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's Flax msgpack bundle -> torch state dicts.
+"""Weight bridge between the JAX package's Flax msgpack files and torch
+state dicts, both ways.
 
 The bundle (``isbfsar_tpu/assets/pretrained/``) is Flax's msgpack format:
 msgpack maps with str keys whose array leaves are msgpack ext type 1, a
@@ -7,8 +8,8 @@ Python and numpy (the machine with the card has no msgpack, flax or
 ml_dtypes): bfloat16 leaves are read as 16-bit integers and viewed as
 ``torch.bfloat16``.
 
-Conversion runs at load time, in memory; nothing converted is written
-anywhere. Flax layouts map to the port's modules as:
+Conversion runs at load time, in memory. Flax layouts map to the port's
+modules as:
 
 * conv kernel HWIO -> weight OIHW (depthwise (k, k, 1, C) -> (C, 1, k, k));
 * dense kernel (in, out) -> weight (out, in);
@@ -18,6 +19,9 @@ anywhere. Flax layouts map to the port's modules as:
 
 The port's modules carry the Flax module names, so a leaf at
 ``{collection}/a/b/kernel`` becomes state-dict key ``a.b.weight``.
+:func:`to_flax_variables` maps a state dict back, and :func:`msgpack_dumps`
+writes a tree as Flax's ``serialization.to_bytes`` does, so the trainer's
+checkpoints read in either package.
 """
 
 from __future__ import annotations
@@ -216,3 +220,147 @@ def convert_focus(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     """A focus bundle ``{"face_det", "lm_refiner", "gaze_net"}`` (``focus-ci``)
     -> state dicts of ``BlazeFaceLite``, ``LandmarkRefiner`` and ``GazeNet``."""
     return {k: convert_variables(params[k]) for k in ("face_det", "lm_refiner", "gaze_net")}
+
+
+def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The inverse of :func:`convert_variables`: a port module's state dict
+    -> Flax variables ``{"params": ...}`` (plus ``"batch_stats"`` where the
+    module has BatchNorm statistics), with CPU tensor leaves and keys in
+    Flax's order."""
+    out: Dict[str, Dict] = {}
+    for key, t in state_dict.items():
+        *mod, name = key.split(".")
+        t = t.detach().cpu()
+        collection = "params"
+        if name == "weight" and t.ndim == 4:
+            t, name = t.permute(2, 3, 1, 0), "kernel"
+        elif name == "weight" and t.ndim == 2:
+            t, name = t.t(), "kernel"
+        elif name == "weight" and "norm" in mod[-1]:
+            name = "scale"  # LayerNorm
+        elif name in ("mean", "var"):
+            collection = "batch_stats"
+        node = out.setdefault(collection, {})
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = t.contiguous()
+    return _sorted(out)
+
+
+def _sorted(tree):
+    """Keys sorted at every level, the order Flax writes parameter trees in."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).removeprefix("torch.")
+    return leaf.dtype.name
+
+
+def _leaf_bytes(leaf) -> bytes:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu().contiguous()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.view(torch.int16)
+        return leaf.numpy().tobytes()
+    return np.ascontiguousarray(leaf).tobytes()
+
+
+class _Writer:
+    """Minimal msgpack encoder that picks each type's shortest form, as the
+    msgpack package does, so a decoded Flax file encodes to the same bytes."""
+
+    def __init__(self):
+        self.parts = []
+
+    def _head(self, n: int, small: int, small_max: int, wide: tuple) -> None:
+        """A length header: ``small | n`` up to ``small_max``, else the first
+        of ``wide``'s (type byte, struct format, limit) that holds n."""
+        if small is not None and n <= small_max:
+            self.parts.append(bytes([small | n]))
+            return
+        for code, fmt, limit in wide:
+            if n <= limit:
+                self.parts.append(bytes([code]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack object of length {n} is too long")
+
+    def value(self, v) -> None:
+        if v is None:
+            self.parts.append(b"\xc0")
+        elif v is True or v is False:
+            self.parts.append(b"\xc3" if v else b"\xc2")
+        elif isinstance(v, int):
+            self._int(v)
+        elif isinstance(v, float):
+            self.parts.append(b"\xcb" + struct.pack(">d", v))
+        elif isinstance(v, str):
+            raw = v.encode("utf-8")
+            self._head(len(raw), 0xA0, 31, ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF),
+                                            (0xDB, ">I", 0xFFFFFFFF)))
+            self.parts.append(raw)
+        elif isinstance(v, (bytes, bytearray, memoryview)):
+            raw = bytes(v)
+            self._head(len(raw), None, -1, ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                                            (0xC6, ">I", 0xFFFFFFFF)))
+            self.parts.append(raw)
+        elif isinstance(v, Mapping):
+            self._head(len(v), 0x80, 15, ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF)))
+            for k, x in v.items():
+                self.value(str(k))
+                self.value(x)
+        elif isinstance(v, (list, tuple)):
+            self._head(len(v), 0x90, 15, ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF)))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, (torch.Tensor, np.ndarray)):
+            self._ext(_NDARRAY_EXT, v)
+        elif isinstance(v, np.generic):
+            self._ext(_NPSCALAR_EXT, np.asarray(v))
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+    def _int(self, n: int) -> None:
+        if 0 <= n <= 0x7F:
+            self.parts.append(bytes([n]))
+        elif -32 <= n < 0:
+            self.parts.append(struct.pack(">b", n))
+        elif n >= 0:
+            for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                     (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+                if n <= limit:
+                    self.parts.append(bytes([code]) + struct.pack(fmt, n))
+                    return
+            raise ValueError(f"integer {n} does not fit msgpack")
+        else:
+            for code, fmt, limit in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                                     (0xD2, ">i", -0x80000000), (0xD3, ">q", -2**63)):
+                if n >= limit:
+                    self.parts.append(bytes([code]) + struct.pack(fmt, n))
+                    return
+            raise ValueError(f"integer {n} does not fit msgpack")
+
+    def _ext(self, code: int, leaf) -> None:
+        inner = _Writer()
+        inner.value([list(leaf.shape), _dtype_name(leaf), _leaf_bytes(leaf)])
+        payload = b"".join(inner.parts)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.parts.append(bytes([fixext[n]]))
+        else:
+            self._head(n, None, -1, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                                     (0xC9, ">I", 0xFFFFFFFF)))
+        self.parts.append(struct.pack(">b", code) + payload)
+
+
+def msgpack_dumps(tree: Any) -> bytes:
+    """Encode a tree of dicts with str keys and tensor or numpy leaves as
+    Flax msgpack (array leaves are ext type 1, ``(shape, dtype, bytes)``);
+    :func:`msgpack_restore` reads it back bit for bit."""
+    writer = _Writer()
+    writer.value(tree)
+    return b"".join(writer.parts)

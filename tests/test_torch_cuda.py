@@ -1,4 +1,5 @@
-"""The PyTorch port's CUDA kernels and CUDA graphs on the GPU. Every test here
+"""The PyTorch port's CUDA kernels and CUDA graphs on the GPU, and its
+recognizer trainer and evaluators on the card against the CPU. Every test here
 needs an NVIDIA GPU and nvcc and skips elsewhere. The file imports neither
 JAX nor the JAX package, so it runs on a machine without them:
 
@@ -323,3 +324,101 @@ def test_bgr_graphs_equal_eager(ci_pipes):
         for key in b:
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"output {i} {key}")
 
+
+
+@pytest.fixture(scope="module")
+def train_tree(tmp_path_factory):
+    """A synthetic training tree (8 classes x 3 clips) for the trainer on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the trainer's card path has no CPU mode")
+    from isbfsar_tpu_torch.train.synthetic import generate_dataset
+
+    root = str(tmp_path_factory.mktemp("train_tree"))
+    generate_dataset(root, n_classes=8, clips_per_class=3, seed=0)
+    return root
+
+
+def _card_and_cpu_trainers(cfg, tmp_path):
+    from isbfsar_tpu_torch.train.trainer import Trainer
+
+    return {d: Trainer(cfg, log_dir=str(tmp_path / d), use_wandb=False, seed=2, device=d)
+            for d in ("cuda", "cpu")}
+
+
+def test_train_steps_on_card_match_cpu(train_tree, tmp_path):
+    """Five steps with accumulation over 2 and the 100x drop after the first
+    update, on the card and on the CPU from one init: every step's
+    fs_correct and gate equal, the losses, parameters and accumulated
+    gradients within chip_smoke.TOL_TRAIN, the counters equal."""
+    import dataclasses
+
+    from chip_smoke import TOL_TRAIN
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.dataloader import EpisodicSampler, batch_iterator
+
+    cfg = dataclasses.replace(ARConfig(), n_task=24, batch_size=8, optimize_every=2,
+                              first_milestone=1, second_milestone=1)
+    sampler = EpisodicSampler(train_tree, n_task=40, l=16, seed=0)
+    batches = list(batch_iterator(sampler, 8, num_threads=1))
+    pair = _card_and_cpu_trainers(cfg, tmp_path)
+    assert next(pair["cuda"].model.parameters()).is_cuda
+    for i, batch in enumerate(batches):
+        got = {d: {k: v.detach().cpu().numpy() for k, v in t.step(batch).items()}
+               for d, t in pair.items()}
+        for k in ("fs_correct", "os_weights"):
+            np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k], err_msg=f"step {i} {k}")
+        for k in ("fs_loss", "os_loss"):
+            assert abs(got["cuda"][k] - got["cpu"][k]) <= TOL_TRAIN[k], (i, k)
+    card, cpu = (t.state() for t in (pair["cuda"], pair["cpu"]))
+    opt_card, opt_cpu = card["opt_state"], cpu["opt_state"]
+    for k in ("mini_step", "gradient_step"):
+        assert int(opt_card[k]) == int(opt_cpu[k])
+    assert (int(opt_cpu["mini_step"]), int(opt_cpu["gradient_step"])) == (1, 2)
+    for key, tree_card, tree_cpu in (("params", card["params"], cpu["params"]),
+                                     ("acc_grads", opt_card["acc_grads"], opt_cpu["acc_grads"])):
+        flat_card = torch.nn.utils.parameters_to_vector(list(_leaves(tree_card)))
+        flat_cpu = torch.nn.utils.parameters_to_vector(list(_leaves(tree_cpu)))
+        err = float((flat_card - flat_cpu).abs().max())
+        print(f"card vs CPU after {len(batches)} steps: {key} max|diff| {err:.3g}")
+        assert err <= TOL_TRAIN[key], (key, err)
+
+
+def _leaves(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k])
+        else:
+            yield tree[k]
+
+
+def test_evaluate_fsos_on_card_matches_cpu(train_tree, tmp_path):
+    """FSOS and the calibration with a briefly trained recognizer: raw
+    scores within chip_smoke.TOL_FSOS_SCORE, known, fs_correct, the metrics
+    and the calibrated threshold equal."""
+    import dataclasses
+
+    from chip_smoke import TOL_FSOS_SCORE
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.dataloader import EpisodicSampler, batch_iterator
+    from isbfsar_tpu_torch.train.fsos import calibrate_os_threshold, evaluate_fsos
+
+    cfg = dataclasses.replace(ARConfig(), n_task=32, batch_size=8)
+    trainer = _card_and_cpu_trainers(cfg, tmp_path)["cuda"]
+    trainer.run_epoch(0, batch_iterator(EpisodicSampler(train_tree, n_task=32, l=16, seed=1), 8),
+                      train=True)
+    params = trainer.params
+    kw = dict(k=5, n_repeats=2, batch_size=8, collect_raw=True)
+    res = {d: evaluate_fsos(cfg, params, train_tree, train_tree, device=d, **kw)
+           for d in ("cuda", "cpu")}
+    for a, b in zip(res["cuda"]["_raw"], res["cpu"]["_raw"], strict=True):
+        np.testing.assert_array_equal(a["known"], b["known"])
+        np.testing.assert_array_equal(a["fs_correct"], b["fs_correct"])
+        err = float(np.max(np.abs(a["scores"] - b["scores"])))
+        print(f"FSOS scores, card vs CPU: max|diff| {err:.3g}")
+        assert err <= TOL_FSOS_SCORE
+    for k in ("FSOS-ACC", "FS-ACC", "OS-ACC"):
+        assert res["cuda"][k] == res["cpu"][k], k
+    calib = [calibrate_os_threshold(cfg, params, train_tree, n_repeats=2, device=d)
+             for d in ("cuda", "cpu")]
+    assert calib[0] == calib[1]

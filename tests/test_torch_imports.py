@@ -1,11 +1,14 @@
 """The PyTorch port and chip_smoke.py import nothing that the GPU machine
-lacks: no jax, jaxlib, flax, optax, msgpack, ml_dtypes, cv2 or triton, and
-nothing of the JAX package ``isbfsar_tpu``. A subprocess refuses those
-imports, imports every module of the port and chip_smoke, and runs the
-slice with focus on the CPU for one frame at CI size, with seeded torch
-weights for the pose stack and the focus-ci bundle read by the port's own
-decoder, then the serving layer on the same slice: the orchestrator's fused
-and module paths for a frame each, and a multi-stream step."""
+lacks: no jax, jaxlib, flax, optax, msgpack, ml_dtypes, cv2, triton, orbax,
+matplotlib or wandb, and nothing of the JAX package ``isbfsar_tpu``. A
+subprocess refuses those imports, imports every module of the port and
+chip_smoke, and runs the slice with focus on the CPU for one frame at CI
+size, with seeded torch weights for the pose stack and the focus-ci bundle
+read by the port's own decoder, then the serving layer on the same slice:
+the orchestrator's fused and module paths for a frame each, and a
+multi-stream step; then the recognizer's training and evaluation: a
+training epoch of 2 steps on a synthetic tree, a checkpoint written and
+read back, and one FSOS repeat."""
 
 import os
 import subprocess
@@ -18,7 +21,7 @@ SCRIPT = textwrap.dedent(r"""
     import importlib, importlib.abc, os, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes", "cv2", "triton",
-               "isbfsar_tpu"}
+               "orbax", "matplotlib", "wandb", "isbfsar_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -76,6 +79,28 @@ SCRIPT = textwrap.dedent(r"""
     multi.start()
     assert len(multi.step(np.stack([frame, frame]))) == 2
     assert parse_args(["--fused"]).device == "cuda"
+
+    import dataclasses, tempfile
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.dataloader import EpisodicSampler, batch_iterator
+    from isbfsar_tpu_torch.train.fsos import evaluate_fsos
+    from isbfsar_tpu_torch.train.synthetic import generate_dataset
+    from isbfsar_tpu_torch.train.trainer import Trainer
+    from isbfsar_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_dataset(tmp + "/tree", n_classes=6, clips_per_class=2)
+        ar_cfg = dataclasses.replace(ARConfig(), n_task=8, batch_size=4)
+        trainer = Trainer(ar_cfg, log_dir=tmp + "/log", device="cpu")
+        sampler = EpisodicSampler(tmp + "/tree", n_task=8, l=16, seed=0)
+        summary = trainer.run_epoch(0, batch_iterator(sampler, 4), train=True)
+        assert trainer.gradient_step == 2 and summary["train/fs_loss"] > 0
+        path = checkpoint.save_checkpoint(tmp + "/ckpt", 0, trainer.state())
+        trainer.load_state(checkpoint.load_checkpoint(
+            path, {"params": None, "batch_stats": None, "opt_state": None}))
+        res = evaluate_fsos(ar_cfg, trainer.params, tmp + "/tree", tmp + "/tree", n_repeats=1,
+                            device="cpu")
+        assert len(res["FSOS-ACC"]) == 1
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
