@@ -1,12 +1,15 @@
 """Online one-shot open-set action recognizer (port of
-``isbfsar_tpu/ar/recognizer.py``, skeleton mode).
+``isbfsar_tpu/ar/recognizer.py``).
 
-The support set lives in fixed-shape buffers — raw skeleton data
-(way, L, 90), cached features (way, L, D) and a validity mask (way,) — so
-adding or removing a class rewrites one slot. The pipeline computes the
-features and the transformer's support K/V once per edit (``start``);
+The support set lives in fixed-shape buffers — raw data per modality of
+the input type (skeleton ``sk`` (way, L, 90), whitened crops ``rgb``
+(way, L, rgb_size, rgb_size, 3); hybrid holds both), cached features
+(way, L, D) and a validity mask (way,) — so adding or removing a class
+rewrites one slot. The pipeline computes the features and the
+transformer's support K/V once per edit (``start``);
 :meth:`ActionRecognizer.inference`, the module path's matcher, caches them
-itself on its first call after an edit.
+itself on its first call after an edit, and embeds the whole query window
+on every call, as the JAX recognizer does.
 
 Guarantees kept from the reference:
 - empty input or an empty support set -> ({}, 0, {});
@@ -32,12 +35,24 @@ from isbfsar_tpu_torch.models.layers import init_random
 from isbfsar_tpu_torch.models.trx import TRXOS
 from isbfsar_tpu_torch.weights import convert_variables
 
+MODALITY_SHAPES = {
+    "sk": lambda cfg: (cfg.n_joints * 3,),
+    "rgb": lambda cfg: (cfg.rgb_size, cfg.rgb_size, 3),
+}
+# the clip keys of ``train``'s data -> modalities
+CLIP_KEYS = {"poses": "sk", "imgs": "rgb"}
+
+
+def _modalities(input_type: str) -> List[str]:
+    return {"skeleton": ["sk"], "rgb": ["rgb"], "hybrid": ["rgb", "sk"]}[input_type]
+
 
 class ActionRecognizer:
     def __init__(self, config: ARConfig, params: Optional[Mapping[str, Any]] = None,
                  seed: int = 0, device: str = "cuda"):
         """params: Flax variables ``{"params": ...}`` of the JAX TRXOS (numpy
-        leaves); None initializes random weights from ``seed``."""
+        leaves; rgb and hybrid also carry the ResNet-50's ``batch_stats``);
+        None initializes random weights from ``seed``."""
         self.config = config
         self.device = torch.device(device)
         self.model = TRXOS(config)
@@ -48,8 +63,11 @@ class ActionRecognizer:
         self.model.eval().to(self.device)
         self.seq_len = config.seq_len
         self.way = config.way
-        self.modalities = ["sk"]
-        self.support_data = {"sk": np.zeros((self.way, self.seq_len, config.n_joints * 3), np.float32)}
+        self.modalities = _modalities(config.input_type)
+        self.support_data = {
+            m: np.zeros((self.way, self.seq_len) + MODALITY_SHAPES[m](config), np.float32)
+            for m in self.modalities
+        }
         self.support_mask = np.zeros((self.way,), bool)
         self.support_features: Optional[torch.Tensor] = None  # (way, L, D) when cached
         self.class_order: List[Optional[str]] = [None] * self.way
@@ -61,8 +79,8 @@ class ActionRecognizer:
         self._support_kv: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
     def train(self, inp: Dict) -> None:
-        """Insert or overwrite a class: {'flag': name, 'data': {'poses': (L, 90)},
-        'requires_focus': bool}."""
+        """Insert or overwrite a class: {'flag': name, 'data': {'poses':
+        (L, 90) and/or 'imgs': (L, rgb_size, rgb_size, 3)}, 'requires_focus': bool}."""
         name = inp["flag"]
         if name in self.class_order:
             slot = self.class_order.index(name)
@@ -72,9 +90,10 @@ class ActionRecognizer:
                 raise ValueError(f"support set is full (way={self.way}); remove a class first")
             slot = int(free[0])
         for k, v in inp["data"].items():
-            m = {"poses": "sk"}.get(k, k)
+            m = CLIP_KEYS.get(k, k)
             if m not in self.support_data:
-                raise ValueError(f"modality {k!r} is not ported (skeleton mode only)")
+                raise ValueError(f"clip key {k!r} is not a modality of "
+                                 f"input_type={self.config.input_type!r}")
             self.support_data[m][slot] = np.asarray(v, np.float32).reshape(
                 self.support_data[m][slot].shape)
         self.support_mask[slot] = True
@@ -102,9 +121,10 @@ class ActionRecognizer:
 
     @torch.inference_mode()
     def embed_support(self) -> torch.Tensor:
-        """(way, L, D) features of the support data (empty slots included)."""
-        sk = torch.from_numpy(self.support_data["sk"]).to(self.device)
-        return self.model.embed_frame(sk)
+        """(way, L, D) features of the support data (empty slots included):
+        in rgb and hybrid, way * L ResNet-50 forwards as one batch."""
+        return self.model.extract_features(
+            {m: torch.from_numpy(v).to(self.device) for m, v in self.support_data.items()})
 
     def _live_classes(self) -> List[str]:
         return [c for c, v in zip(self.class_order, self.support_mask) if v and c is not None]
@@ -112,10 +132,11 @@ class ActionRecognizer:
     @torch.inference_mode()
     def inference(self, data: Optional[Dict[str, np.ndarray]]
                   ) -> Tuple[Dict[str, float], float, Dict[str, bool]]:
-        """One frame's {'sk': (90,)} -> (scores per live class, open-set
-        decision, requires_focus); ({}, 0, {}) until the window holds
-        seq_len frames. The support features and K/V are computed on the
-        first call after an edit and reused."""
+        """One frame's {'sk': (90,)} and/or {'rgb': (rgb_size, rgb_size, 3)}
+        -> (scores per live class, open-set decision, requires_focus);
+        ({}, 0, {}) until the window holds seq_len frames. The support
+        features and K/V are computed on the first call after an edit and
+        reused; the window's frames are embedded anew on each call."""
         if data is None or len(data) == 0:
             return {}, 0, {}
         if not self.support_mask.any():
@@ -138,8 +159,9 @@ class ActionRecognizer:
             s_k, s_v = self.model.support_kv(self.support_features[None])
             self._support_kv = (self.support_features, s_k, s_v)
         _, s_k, s_v = self._support_kv
-        query = torch.from_numpy(np.stack([f["sk"] for f in self.previous_frames])[None])
-        feats = self.model.embed_frame(query.to(self.device))
+        query = {m: torch.from_numpy(np.stack([f[m] for f in self.previous_frames])[None]
+                                     ).to(self.device) for m in self.modalities}
+        feats = self.model.extract_features(query)
         mask = torch.from_numpy(self.support_mask.copy())[None].to(self.device)
         out = self.model.match_features(feats, mask, s_k, s_v)
         probs = torch.softmax(out["logits"][0], dim=-1)

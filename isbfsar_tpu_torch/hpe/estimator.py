@@ -104,10 +104,11 @@ class HumanPoseEstimator:
         y2 = torch.maximum(y2, y1 + 1)
         return (x1, y1, x2, y2), conf, found
 
-    def _box_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor):
+    def _box_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None):
         """frames (B, H, W, 3) -> bbox (B, 4) int32 in the full path's
-        (x1, x2, y1, y2) order, conf (B,), found (B,)."""
-        (x1, y1, x2, y2), conf, found = self._detect(nets, frames)
+        (x1, x2, y1, y2) order, conf (B,), found (B,): the detector alone
+        (``just_box``)."""
+        (x1, y1, x2, y2), conf, found = self._detect(nets, frames, yolo_in)
         return torch.stack([x1, x2, y1, y2], dim=-1), conf, found
 
     def _estimate_impl(self, nets: Dict[str, torch.nn.Module], frames: torch.Tensor, yolo_in=None,

@@ -1,11 +1,13 @@
-"""ResNet-18 trunk (port of ``isbfsar_tpu/models/resnet.py``), NCHW.
+"""ResNet-18 and ResNet-50 trunks (port of ``isbfsar_tpu/models/resnet.py``), NCHW.
 
-The GazeNet backbone of the focus path. Stem: a 7x7 stride-2 convolution
-padded (3, 3), BatchNorm, ReLU and a 3x3/2 max-pool padded (1, 1) with
--inf, as Flax's ``max_pool`` pads. Then four stages of two
-:class:`BasicBlock` and a global average pool, which returns float32
-features. BatchNorm eps 1e-5. The convolutions compute in ``dtype`` and
-cast their float32 weights to it, as the Flax modules do.
+ResNet-18 is the GazeNet backbone of the focus path, ResNet-50 the RGB
+extractor of the recognizer (``models/trx.py::RGBExtractor``). Stem: a 7x7
+stride-2 convolution padded (3, 3), BatchNorm, ReLU and a 3x3/2 max-pool
+padded (1, 1) with -inf, as Flax's ``max_pool`` pads. Then four stages of
+:class:`BasicBlock` (ResNet-18: 2, 2, 2, 2) or :class:`Bottleneck`
+(ResNet-50: 3, 4, 6, 3) and a global average pool, which returns float32
+features. BatchNorm (inference) eps 1e-5. The convolutions compute in
+``dtype`` and cast their float32 weights to it, as the Flax modules do.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ _EPS = 1e-5
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, cin: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = Conv(cin, filters, 3, stride, padding=1, bias=False)
@@ -43,10 +47,42 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
-class ResNet(nn.Module):
-    """(b, 3, s, s) -> (b, width * 2**(stages - 1)) float32 pooled features."""
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 to ``filters * 4``, with a projected
+    shortcut where the shape changes."""
 
-    def __init__(self, stage_sizes: Sequence[int], width: int = 64,
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int = 1):
+        super().__init__()
+        cout = filters * self.expansion
+        self.conv1 = Conv(cin, filters, 1, bias=False)
+        self.bn1 = BatchNorm(filters, _EPS)
+        self.conv2 = Conv(filters, filters, 3, stride, padding=1, bias=False)
+        self.bn2 = BatchNorm(filters, _EPS)
+        self.conv3 = Conv(filters, cout, 1, bias=False)
+        self.bn3 = BatchNorm(cout, _EPS)
+        if stride != 1 or cin != cout:
+            self.downsample_conv = Conv(cin, cout, 1, stride, bias=False)
+            self.downsample_bn = BatchNorm(cout, _EPS)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """(b, 3, s, s) -> (b, width * 2**(stages - 1) * block.expansion)
+    float32 pooled features."""
+
+    def __init__(self, stage_sizes: Sequence[int], block=BasicBlock, width: int = 64,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
@@ -58,9 +94,9 @@ class ResNet(nn.Module):
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 name = f"layer{i + 1}_{j}"
-                setattr(self, name, BasicBlock(cin, width * 2**i, stride))
+                setattr(self, name, block(cin, width * 2**i, stride))
                 self.blocks.append(name)
-                cin = width * 2**i
+                cin = width * 2**i * block.expansion
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
@@ -73,4 +109,8 @@ class ResNet(nn.Module):
 
 
 def resnet18(dtype: torch.dtype = torch.bfloat16) -> ResNet:
-    return ResNet(stage_sizes=(2, 2, 2, 2), dtype=dtype)
+    return ResNet(stage_sizes=(2, 2, 2, 2), block=BasicBlock, dtype=dtype)
+
+
+def resnet50(dtype: torch.dtype = torch.bfloat16) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block=Bottleneck, dtype=dtype)

@@ -1,10 +1,14 @@
-"""TRX-OS, skeleton mode (port of ``isbfsar_tpu/models/trx.py``).
+"""TRX-OS in its three input modes (port of ``isbfsar_tpu/models/trx.py``).
 
-SkeletonMLP (90 -> 180 -> 256, ReLU on both), the temporal cross-transformer
-over all C(seq_len, 2) frame pairs (K/V linears with LayerNorm on K,
-softmax over the query-tuple axis, negative mean squared distance logits)
-and the open-set Discriminator. The support set is a fixed (way,) buffer
-with a validity mask: invalid classes get -1e30 logits. All float32.
+The per-frame extractors: SkeletonMLP (90 -> 180 -> 256, ReLU on both)
+for skeleton and hybrid; RGBExtractor (ResNet-50 pooled features, ReLU,
+Dense 2048 -> 256) for rgb and hybrid, which takes NHWC whitened crops as
+the JAX module does. Hybrid concatenates them, rgb first. Then the
+temporal cross-transformer over all C(seq_len, 2) frame pairs (K/V linears
+with LayerNorm on K, softmax over the query-tuple axis, negative mean
+squared distance logits) and the open-set Discriminator. The support set is
+a fixed (way,) buffer with a validity mask: invalid classes get -1e30
+logits. All float32 (``ARConfig.compute_dtype``), the ResNet-50 included.
 
 ``forward`` is the whole episode the trainer and the evaluators run;
 ``support_kv`` and ``match_features`` are the streaming split the pipeline
@@ -22,6 +26,7 @@ from torch import nn
 
 from isbfsar_tpu_torch.configs import ARConfig
 from isbfsar_tpu_torch.models.layers import LayerNorm
+from isbfsar_tpu_torch.models.resnet import resnet50
 from isbfsar_tpu_torch.ops.tuples import frame_tuples
 
 NEG_INF = -1e30
@@ -45,6 +50,20 @@ class SkeletonMLP(nn.Module):
 
     def forward(self, x):
         return F.relu(self.fc2(F.relu(self.fc1(x))))
+
+
+class RGBExtractor(nn.Module):
+    """(n, H, W, 3) whitened crops -> (n, 256): ResNet-50 pooled features,
+    ReLU, Dense ``post``. ``ResNet_0`` is the name Flax gives the ResNet it
+    builds inline, so the JAX parameter tree loads as it is."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ResNet_0 = resnet50(dtype)
+        self.post = nn.Linear(2048, 256)
+
+    def forward(self, x):
+        return self.post(F.relu(self.ResNet_0(x.permute(0, 3, 1, 2))))
 
 
 class Discriminator(nn.Module):
@@ -101,14 +120,17 @@ class TemporalCrossTransformer(nn.Module):
 
 
 class TRXOS(nn.Module):
-    """Skeleton-mode recognizer; module names follow the Flax tree."""
+    """The recognizer in ``config.input_type``; module names follow the Flax tree."""
 
     def __init__(self, config: ARConfig):
         super().__init__()
-        if config.input_type != "skeleton":
-            raise NotImplementedError("the port runs skeleton mode only")
+        if config.input_type not in ("skeleton", "rgb", "hybrid"):
+            raise ValueError(f"unknown input_type {config.input_type!r}")
         self.config = config
-        self.sk_extractor = SkeletonMLP(config.n_joints * 3, config.n_joints * 3 * 2, 256)
+        if config.input_type in ("skeleton", "hybrid"):
+            self.sk_extractor = SkeletonMLP(config.n_joints * 3, config.n_joints * 3 * 2, 256)
+        if config.input_type in ("rgb", "hybrid"):
+            self.rgb_extractor = RGBExtractor(getattr(torch, config.compute_dtype))
         self.transformer = TemporalCrossTransformer(
             config.seq_len, config.trans_linear_in_dim, config.trans_linear_out_dim,
             config.temp_set[0], config.pe_scale_factor)
@@ -116,18 +138,30 @@ class TRXOS(nn.Module):
         if config.model == "DISC":
             self.discriminator = Discriminator(n_tuples, config.trans_linear_out_dim, config.seq_len)
 
-    def embed_frame(self, sk):
-        """(..., n_joints*3) root-relative skeletons -> (..., 256) features."""
-        return self.sk_extractor(sk)
+    def embed_frame(self, sk=None, rgb=None):
+        """Per-frame features (..., trans_linear_in_dim) of root-relative
+        skeletons ``sk`` (..., n_joints*3) and whitened NHWC crops ``rgb``
+        (..., H, W, 3), the modalities of the input type; rgb first, as the
+        JAX concatenation."""
+        feats = []
+        if rgb is not None:
+            lead = rgb.shape[:-3]
+            flat = self.rgb_extractor(rgb.reshape((-1,) + rgb.shape[-3:]))
+            feats.append(flat.reshape(lead + (flat.shape[-1],)))
+        if sk is not None:
+            feats.append(self.sk_extractor(sk))
+        return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
 
     def extract_features(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """{"sk": (..., L, n_joints*3)} -> (..., L, 256)."""
-        return self.sk_extractor(data["sk"])
+        """{"sk": (..., L, n_joints*3)} and/or {"rgb": (..., L, H, W, 3)} ->
+        (..., L, trans_linear_in_dim)."""
+        return self.embed_frame(sk=data.get("sk"), rgb=data.get("rgb"))
 
     def forward(self, query_data, support_mask, support_data=None, support_features=None):
-        """A whole episode: query clips {"sk": (b, L, 90)} against a support
-        set given as clips {"sk": (b, way, L, 90)} or as their features
-        (b, way, L, D), exactly one of the two."""
+        """A whole episode: query clips {"sk": (b, L, 90)} and/or {"rgb":
+        (b, L, H, W, 3)} against a support set given as clips (the same keys,
+        (b, way, L, ...)) or as their features (b, way, L, D), exactly one
+        of the two."""
         query_features = self.extract_features(query_data)
         if support_features is None:
             support_features = self.extract_features(support_data)

@@ -2,7 +2,11 @@
 
 Plain PyTorch versions of the I420 decode and the YOLO input: they are the
 reference the CUDA kernel in ``ops/fused_input.py`` is held against, and
-what that wrapper runs for CPU tensors.
+what that wrapper runs for CPU tensors. The recognizer's RGB input: the
+fused step's square crop (:func:`center_square_crop_resize`, a gather on
+the device) and whitening (:func:`ar_rgb_preprocess`); and, for the
+module path's host crop, :func:`resize_linear_u8`, a numpy twin of cv2's
+``INTER_LINEAR`` resize of uint8 images (the card's machine has no cv2).
 """
 
 from __future__ import annotations
@@ -11,6 +15,9 @@ import functools
 
 import numpy as np
 import torch
+
+IMAGENET_SCALE = (0.229, 0.224, 0.225)
+IMAGENET_SHIFT = (0.485, 0.456, 0.406)
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,6 +61,98 @@ def yolo_preprocess(frame_bgr: torch.Tensor, size: int = 256) -> torch.Tensor:
     """(..., H, W, 3) BGR frame -> (..., 1, size, size, 3) RGB float32 in [0, 1]."""
     small = resize_area(frame_bgr, size, size)
     return (small.flip(-1) / 255.0).unsqueeze(-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _whitening_on(device: torch.device):
+    """(scale, shift) float32 on ``device``, copied there once (as
+    ``_area_weights_on``: a CUDA graph cannot hold a host copy)."""
+    return (torch.tensor(IMAGENET_SCALE, dtype=torch.float32).to(device),
+            torch.tensor(IMAGENET_SHIFT, dtype=torch.float32).to(device))
+
+
+def ar_rgb_preprocess(crop_bgr: torch.Tensor) -> torch.Tensor:
+    """(..., S, S, 3) BGR crop -> float32 ``crop / 255 * scale + shift``.
+
+    Scale-then-shift, not ``(x - mean) / std``: the reference whitens so,
+    and its recognizer checkpoints were trained on it. BGR order, NHWC."""
+    scale, shift = _whitening_on(crop_bgr.device)
+    return crop_bgr.to(torch.float32) / 255.0 * scale + shift
+
+
+def center_square_crop_resize(img: torch.Tensor, box, out: int = 224) -> torch.Tensor:
+    """A square around each box's center, sampled at ``out`` x ``out``
+    nearest points: (B, H, W, C) frames and int32 boxes (x1, y1, x2, y2),
+    each (B,) -> (B, out, out, C).
+
+    The JAX function's integer arithmetic, in int32 tensors on the device
+    (no host value, so a CUDA graph holds it): center ``(x1 + x2) // 2``,
+    half side ``max(xm - x1, ym - y1, 1)``, the square's origin clipped at
+    0, sample ``i`` at ``origin + i * side // out``, indices clipped to the
+    frame."""
+    h, w = img.shape[-3], img.shape[-2]
+    x1, y1, x2, y2 = box
+    xm = torch.div(x1 + x2, 2, rounding_mode="floor")
+    ym = torch.div(y1 + y2, 2, rounding_mode="floor")
+    half = torch.clamp(torch.maximum(xm - x1, ym - y1), min=1)
+    y_lo = torch.clamp(ym - half, min=0)
+    x_lo = torch.clamp(xm - half, min=0)
+    steps = torch.arange(out, dtype=torch.int32, device=img.device)[None] * (2 * half)[:, None]
+    steps = torch.div(steps, out, rounding_mode="floor")
+    ys = torch.clamp(y_lo[:, None] + steps, 0, h - 1).long()
+    xs = torch.clamp(x_lo[:, None] + steps, 0, w - 1).long()
+    rows = torch.arange(img.shape[0], device=img.device)[:, None, None]
+    return img[rows, ys[:, :, None], xs[:, None, :]]
+
+
+def _linear_taps(src: int, dst: int):
+    """cv2's INTER_LINEAR source index and float32 fraction for each of
+    ``dst`` samples of ``src``: ``(i + 0.5) * scale - 0.5`` with cv2's
+    ``scale = 1 / (dst / src)`` in float64, rounded to float32."""
+    pos = ((np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    lo = np.floor(pos).astype(np.int64)
+    return lo, (pos - lo.astype(np.float32)).astype(np.float32)
+
+
+def _coef(frac: np.ndarray) -> tuple:
+    """11-bit fixed-point weights ``(1 - f, f) * 2048``, each rounded to
+    nearest even on its own, as cv2's ``saturate_cast<short>`` does."""
+    one = np.float32(1.0)
+    return (np.rint((one - frac) * np.float32(2048)).astype(np.int32),
+            np.rint(frac * np.float32(2048)).astype(np.int32))
+
+
+def resize_linear_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(img, (out_w, out_h)) with ``INTER_LINEAR`` on (h, w, c)
+    uint8, in numpy: cv2's fixed-point arithmetic step by step.
+
+    Along each row first: source columns clamped at the edges (fraction 0
+    there), exact integer sums ``S0 * a0 + S1 * a1`` with 11-bit weights;
+    from the first column whose right neighbour lies outside, ``S * 2048``.
+    Then down each column: the source rows are clipped but the weights are
+    not clamped (at the top and bottom of an upscale both taps read the
+    edge row, and their separately rounded weights need not sum to 2048),
+    and each pair is combined as cv2's vector loop does:
+    ``(((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) + 2) >> 2``,
+    saturated to uint8. An exact 2x downscale, which cv2 hands to its area
+    resize, gives the same pixels by this formula."""
+    h, w = img.shape[:2]
+    sx, fx = _linear_taps(w, out_w)
+    edge = (sx < 0) | (sx >= w - 1)
+    fx = np.where(edge, np.float32(0.0), fx)
+    sx = np.clip(sx, 0, w - 1)
+    a0, a1 = _coef(fx)
+    src = img.astype(np.int32)
+    rows = src[:, sx] * a0[:, None] + src[:, np.minimum(sx + 1, w - 1)] * a1[:, None]
+    past = np.flatnonzero(sx + 1 >= w)
+    if past.size:
+        rows[:, past[0]:] = src[:, sx[past[0]:]] * 2048
+    sy, fy = _linear_taps(h, out_h)
+    b0, b1 = _coef(fy)
+    s0 = rows[np.clip(sy, 0, h - 1)] >> 4
+    s1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
+    y = ((s0 * b0[:, None, None]) >> 16) + ((s1 * b1[:, None, None]) >> 16)
+    return np.clip((y + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def i420_to_bgr(yuv: torch.Tensor, height: int) -> torch.Tensor:

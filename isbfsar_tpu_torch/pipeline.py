@@ -1,5 +1,5 @@
-"""FusedPipeline, skeleton mode with focus, I420 or BGR input (port of
-``isbfsar_tpu/pipeline.py``).
+"""FusedPipeline in the three input modes, with focus, I420 or BGR input
+(port of ``isbfsar_tpu/pipeline.py``).
 
 Per frame:
 
@@ -14,6 +14,14 @@ Per frame:
     detection, landmarks, head pose and the normalization camera by the
     CUDA kernel of ops/head_pose.py, the normalized crop, gaze) -> one
     packed float32 vector.
+
+rgb and hybrid embed each frame with the ResNet-50 RGB extractor on a
+square crop around the person box (``ops/image.py``: a gather from the
+unrounded float BGR frame, then whitening), inside the same step; hybrid
+concatenates it with the skeleton embedding. rgb with ``hpe.just_box``
+(``PipelineConfig.for_input("rgb")``) runs the detector alone: no pose
+(zeros in the packed vector, none published by ``decode``), a frame is
+good when a person is found, and there is no smoothing.
 
 The JAX package runs one frame in ``_step_impl`` and vmaps it in
 ``_step_batch_impl``; here ``_step_batch_impl`` does both, a per-frame step
@@ -67,7 +75,8 @@ from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
 from isbfsar_tpu_torch.models.layers import BatchNorm, pin_float32_matmul
 from isbfsar_tpu_torch.ops.fused_input import fused_i420_inputs
 from isbfsar_tpu_torch.ops.head_pose import focus_geometry
-from isbfsar_tpu_torch.ops.image import yolo_preprocess
+from isbfsar_tpu_torch.ops.image import (ar_rgb_preprocess, center_square_crop_resize,
+                                         yolo_preprocess)
 from isbfsar_tpu_torch.ops.smooth import one_euro_gated_state, one_euro_gated_step
 from isbfsar_tpu_torch.utils.transfer import HostCopy, to_device
 
@@ -77,7 +86,7 @@ class StreamState(NamedTuple):
 
     window: torch.Tensor  # ([S,] seq_len, trans_linear_in_dim) per-frame feature ring
     n_valid: torch.Tensor  # ([S],) int32 — filled frames in the window
-    smooth: Any = ()  # One-Euro state dict when ARConfig.smooth_poses
+    smooth: Any = ()  # One-Euro state dict when ARConfig.smooth_poses, outside rgb mode
 
 
 class _Layout:
@@ -232,8 +241,7 @@ class FusedPipeline(_StaticSteps):
         if input_format not in ("i420", "bgr"):
             raise ValueError(f"input_format must be 'i420' or 'bgr', not {input_format!r}")
         self.input_format = input_format
-        if self.config.main.input_type != "skeleton":
-            raise NotImplementedError("the port runs skeleton mode only")
+        self.input_type = self.config.main.input_type
         pin_float32_matmul()
         self.device = torch.device(device)
         self.cuda_graphs = self.device.type == "cuda" if cuda_graphs is None else bool(cuda_graphs)
@@ -271,12 +279,21 @@ class FusedPipeline(_StaticSteps):
         cfg = self.config.ar
         lead = tuple(lead)
         smooth = (one_euro_gated_state((cfg.n_joints, 3), self.device, lead)
-                  if cfg.smooth_poses else ())
+                  if self._smooths() else ())
         return StreamState(
             window=torch.zeros(lead + (cfg.seq_len, cfg.trans_linear_in_dim), device=self.device),
             n_valid=torch.zeros(lead, dtype=torch.int32, device=self.device),
             smooth=smooth,
         )
+
+    def _smooths(self) -> bool:
+        """One-Euro smoothing of the pose: on by config, never in rgb mode
+        (no pose feeds the recognizer there)."""
+        return self.config.ar.smooth_poses and self.input_type != "rgb"
+
+    def _detector_only(self) -> bool:
+        """rgb with ``just_box``: the step runs YOLO and no pose chain."""
+        return self.input_type == "rgb" and self.hpe.just_box
 
     def frame_shape(self) -> Tuple[int, ...]:
         """The shape of one input frame in this pipeline's format."""
@@ -319,8 +336,15 @@ class FusedPipeline(_StaticSteps):
         b = frames.shape[t]
         n = b * int(np.prod(lead, dtype=np.int64))
         frames, yolo_in = self._decode_frame(frames.reshape((n,) + frames.shape[t + 1:]))
-        pose, bbox, conf, found, visible = self.hpe._estimate_impl(params["hpe"], frames, yolo_in)
-        pose_ok = found & visible
+        if self._detector_only():
+            bbox, conf, found = self.hpe._box_impl(params["hpe"], frames, yolo_in)
+            pose = torch.zeros((n, cfg.n_joints, 3), device=frames.device)
+        else:
+            pose, bbox, conf, found, visible = self.hpe._estimate_impl(params["hpe"], frames,
+                                                                       yolo_in)
+        # rgb gates on the detection alone; skeleton and hybrid also on the
+        # joints in view
+        pose_ok = found if self.input_type == "rgb" else found & visible
 
         distance = torch.linalg.norm(pose[:, 0], dim=-1) * 2.5
         rel_pose = pose - pose[:, :1]
@@ -332,7 +356,7 @@ class FusedPipeline(_StaticSteps):
         # causal pose smoothing before the batched embedding: good frames
         # tick the filter, no-detection frames leave it untouched
         smooth_state = state.smooth
-        if cfg.smooth_poses:
+        if self._smooths():
             rel = per_stream(rel_pose)
             smoothed = []
             for i in range(b):
@@ -340,7 +364,14 @@ class FusedPipeline(_StaticSteps):
                 smoothed.append(r)
             rel_pose = torch.stack(smoothed, dim=t).reshape(rel_pose.shape)
 
-        features = per_stream(params["ar"].embed_frame(rel_pose.reshape(n, -1)))
+        kwargs = {}
+        if self.input_type in ("skeleton", "hybrid"):
+            kwargs["sk"] = rel_pose.reshape(n, -1)
+        if self.input_type in ("rgb", "hybrid"):
+            # the box is (x1, x2, y1, y2), the crop takes (x1, y1, x2, y2)
+            box = (bbox[:, 0], bbox[:, 2], bbox[:, 1], bbox[:, 3])
+            kwargs["rgb"] = ar_rgb_preprocess(center_square_crop_resize(frames, box, cfg.rgb_size))
+        features = per_stream(params["ar"].embed_frame(**kwargs))
 
         # ring recurrence, pushed only on good frames
         window, n_valid = state.window, state.n_valid
@@ -466,9 +497,10 @@ class FusedPipeline(_StaticSteps):
         """Unpacked outputs -> the orchestrator's elements contract."""
         elements: Dict[str, Any] = {}
         if outputs["pose_ok"] > 0:
-            elements["pose"] = outputs["pose"]
-            elements["distance"] = float(outputs["distance"])
-            elements["edges"] = self.hpe.edges
+            if not self._detector_only():  # the detector alone has no pose to publish
+                elements["pose"] = outputs["pose"]
+                elements["distance"] = float(outputs["distance"])
+                elements["edges"] = self.hpe.edges
             x1, x2, y1, y2 = (int(v) for v in outputs["bbox"])
             elements["bbox"] = (x1, x2, y1, y2)
         if outputs["ar_ready"] > 0 and outputs["pose_ok"] > 0:

@@ -10,18 +10,25 @@ Its detector is the calibrated production one (the ``pose-prod-256-calib``
 bundle entry, which holds the YOLO branch alone); EfficientNetV2-L and the
 MeTRAbs head are random from a seed, because the 351 MB ``pose-prod-256``
 base does not fit the card machine's copy of the repo. A missing bundle
-file raises. ``build_ci`` is the trained CI operating point
-(``pose-ci-motions``, and ``focus-ci`` at ``CI_FOCUS_CFG`` with focus on)
-at 240x320 in float32, and ``ci_frames`` the smoke frames at its size,
-with the committed face frames when asked.
+file raises. ``input_type`` picks the mode (``PipelineConfig.for_input``):
+rgb runs the detector alone (``just_box``) and the ResNet-50 RGB extractor
+at 224 in float32, hybrid the whole pose stack and the ResNet-50; the
+bundle holds no rgb recognizer, so the ResNet-50 is random from the seed.
+``build_ci`` is the trained CI operating point (``pose-ci-motions``, and
+``focus-ci`` at ``CI_FOCUS_CFG`` with focus on) at 240x320 in float32
+(rgb and hybrid: the ResNet-50 at a 64 crop), and ``ci_frames`` the smoke
+frames at its size, with the committed face frames when asked.
 
 Run as a script, it warms the slice up on the smoke and face frames, then
 profiles ``FusedPipeline.step`` over ``--steps`` frames and one
 ``stream_batched`` batch of 16 with ``torch.profiler``, with CUDA graphs
-and eagerly, with focus on and then off. For each window it prints the
-host wall time per frame, the device kernel time per frame, the device
-busy share (kernel time over wall time), the kernel launches per frame and
-the kernels that take the most device time. Needs a CUDA device.
+and eagerly, with focus on and then off, then the graph step in rgb and
+hybrid. For each window it prints the host wall time per frame, the device
+kernel time per frame, the device busy share (kernel time over wall time),
+the kernel launches per frame and the kernels that take the most device
+time; for rgb and hybrid also the device ms per frame of the crop with its
+whitening and of the ResNet-50, each a CUDA graph of its own, at B=1 and
+B=16. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,12 +46,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from isbfsar_tpu_torch import weights
 from isbfsar_tpu_torch.ar.recognizer import ActionRecognizer
-from isbfsar_tpu_torch.configs import (CameraIntrinsics, FocusConfig, HPEConfig, MainConfig,
-                                       PipelineConfig)
+from isbfsar_tpu_torch.configs import (ARConfig, CameraIntrinsics, FocusConfig, HPEConfig,
+                                       MainConfig, PipelineConfig)
 from isbfsar_tpu_torch.focus.detector import FocusDetector
 from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
+from isbfsar_tpu_torch.kernel_bench import graph_ms
 from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
-from isbfsar_tpu_torch.ops.image import bgr_to_i420, i420_to_bgr, resize_area
+from isbfsar_tpu_torch.ops.image import (IMAGENET_SCALE, IMAGENET_SHIFT, ar_rgb_preprocess,
+                                         bgr_to_i420, center_square_crop_resize, i420_to_bgr,
+                                         resize_area)
 from isbfsar_tpu_torch.pipeline import FusedPipeline
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
@@ -76,19 +86,33 @@ def slice_frames() -> list:
     return [f for pair in zip(smoke, faces) for f in pair] + faces[len(smoke):]
 
 
+def random_clip(ar_config: ARConfig, rng: np.random.Generator) -> dict:
+    """One random support clip in the modalities of ``ar_config``'s input
+    type: normal poses, and crops of uniform random pixels whitened as the
+    pipeline whitens its crops."""
+    seq, data = ar_config.seq_len, {}
+    if ar_config.input_type in ("skeleton", "hybrid"):
+        data["poses"] = rng.normal(size=(seq, 90)).astype(np.float32)
+    if ar_config.input_type in ("rgb", "hybrid"):
+        px = rng.integers(0, 256, (seq, ar_config.rgb_size, ar_config.rgb_size, 3))
+        data["imgs"] = (px.astype(np.float32) / np.float32(255.0) * np.float32(IMAGENET_SCALE)
+                        + np.float32(IMAGENET_SHIFT)).astype(np.float32)
+    return data
+
+
 def train_support(pipe: FusedPipeline, seed: int = 0) -> None:
     """Two random support actions, as bench.py trains them, then a fresh stream."""
     rng = np.random.default_rng(seed)
     for i in range(2):
-        pipe.ar.train({"flag": f"action_{i}",
-                       "data": {"poses": rng.normal(size=(pipe.config.ar.seq_len, 90)).astype(np.float32)},
+        pipe.ar.train({"flag": f"action_{i}", "data": random_clip(pipe.config.ar, rng),
                        "requires_focus": False})
     pipe.start()
 
 
-def build_slice(seed: int = 0, cuda_graphs: bool = True, with_focus: bool = True) -> FusedPipeline:
+def build_slice(seed: int = 0, cuda_graphs: bool = True, with_focus: bool = True,
+                input_type: str = "skeleton") -> FusedPipeline:
     """The full-width slice on the card (see the module docstring)."""
-    config = PipelineConfig()
+    config = PipelineConfig.for_input(input_type)
     hpe = HumanPoseEstimator(config.hpe, config.intrinsics, seed=seed)
     delta = weights.load_bundle("pose-prod-256-calib")
     hpe.nets["yolo"].load_state_dict(weights.convert_variables(delta["yolo"]), strict=True)
@@ -114,6 +138,7 @@ CI_SHAPE = (240, 320)
 CI_INTRINSICS = CameraIntrinsics(fx=192.0, fy=192.0, ppx=160.0, ppy=120.0, width=320, height=240)
 # the focus nets' CI operating point: the same nets, a 64 crop, float32
 CI_FOCUS_CFG = dataclasses.replace(FocusConfig(), gaze_image_size=64, compute_dtype="float32")
+CI_RGB_SIZE = 64  # the recognizer's RGB crop at the CI operating point
 
 
 def ci_frames(n: int = 18, faces: bool = False) -> list:
@@ -132,15 +157,20 @@ def ci_frames(n: int = 18, faces: bool = False) -> list:
 
 
 def build_ci(device: str = "cuda", cuda_graphs=None, params=None, with_focus: bool = True,
-             focus_params=None) -> FusedPipeline:
+             focus_params=None, input_type: str = "skeleton") -> FusedPipeline:
     """The trained CI operating point (pose-ci-motions: V2_TINY, YOLO width
     0.25 at 128, crop 128, 240x320, float32, gate 0.3) with two random
-    support actions; with focus, ``focus-ci`` at ``CI_FOCUS_CFG``."""
+    support actions; with focus, ``focus-ci`` at ``CI_FOCUS_CFG``. rgb and
+    hybrid add the ResNet-50 at a 64 crop (``CI_RGB_SIZE``); rgb runs the
+    detector alone."""
     h, w = CI_SHAPE
-    hcfg = HPEConfig(yolo_input_size=128, crop_size=128, yolo_thresh=0.3, compute_dtype="float32")
+    hcfg = HPEConfig(yolo_input_size=128, crop_size=128, yolo_thresh=0.3, compute_dtype="float32",
+                     just_box=input_type == "rgb")
     intr = CI_INTRINSICS
-    cfg = PipelineConfig(main=MainConfig(cam_width=w, cam_height=h), intrinsics=intr, hpe=hcfg,
-                         focus=CI_FOCUS_CFG, param_dtype="float32")
+    main = dataclasses.replace(MainConfig.for_input(input_type), cam_width=w, cam_height=h)
+    ar = ARConfig.for_input(input_type, rgb_size=CI_RGB_SIZE)
+    cfg = PipelineConfig(main=main, intrinsics=intr, hpe=hcfg, ar=ar, focus=CI_FOCUS_CFG,
+                         param_dtype="float32")
     hpe = HumanPoseEstimator(hcfg, intr, params=params or weights.load_bundle("pose-ci-motions"),
                              backbone_stages=V2_TINY, frame_shape=CI_SHAPE, yolo_width=0.25,
                              device=device)
@@ -204,6 +234,27 @@ def _profile(name: str, pipe: FusedPipeline, frames: list, steps: int, trace: st
     _report(f"{name} stream_batched B=16", prof, wall, 16)
 
 
+def rgb_stage_ms(pipe: FusedPipeline, frames: list) -> dict:
+    """Device ms per frame of the rgb feature's two stages on ``frames``'
+    first detections, each a CUDA graph of its own, at B=1 and B=16: the
+    crop with its whitening (``crop``) and the ResNet-50 RGB extractor with
+    its projection (``resnet50``)."""
+    size = pipe.config.ar.rgb_size
+    extractor = pipe.ar.model.rgb_extractor
+    out = {}
+    with torch.inference_mode():
+        for b in (1, 16):
+            batch = torch.from_numpy(np.stack([frames[i % len(frames)] for i in range(b)])).cuda()
+            decoded, yolo_in = pipe._decode_frame(batch)
+            (x1, y1, x2, y2), _, _ = pipe.hpe._detect(pipe._params()["hpe"], decoded, yolo_in)
+            crop = lambda: ar_rgb_preprocess(center_square_crop_resize(decoded, (x1, y1, x2, y2),
+                                                                       size))
+            crops = crop()
+            out[f"crop B={b}"] = graph_ms(crop) / b
+            out[f"resnet50 B={b}"] = graph_ms(lambda: extractor(crops), reps=4) / b
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -219,6 +270,15 @@ def main(argv=None) -> int:
     _profile("eager", twin(pipe, cuda_graphs=False), frames, args.steps)
     _profile("graphs, focus off", twin(pipe, cuda_graphs=True, with_focus=False), frames,
              args.steps)
+    for input_type in ("rgb", "hybrid"):
+        pipe = build_slice(input_type=input_type)
+        for f in frames[:3]:
+            pipe.step(f)
+        list(pipe.stream_batched(frames, 16))
+        profile_steps(f"{input_type}, graphs", pipe, frames, args.steps)
+        stages = rgb_stage_ms(pipe, frames)
+        print(f"[{input_type}] device ms per frame, CUDA graphs: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     print(f"[profile] {torch.cuda.get_device_name(0)}")
     return 0
 

@@ -1,5 +1,5 @@
 """Pipeline orchestrator — the live frame loop and command protocol (port of
-``isbfsar_tpu/runtime/orchestrator.py``, skeleton mode).
+``isbfsar_tpu/runtime/orchestrator.py``).
 
 One process owns the card. On the module path the frame is uploaded once
 and shared by the pose estimator and the focus detector, both enqueued
@@ -16,8 +16,12 @@ Contracts kept:
   ``acquisition_time`` seconds;
 - 10-frame moving-average FPS.
 
-The rgb and hybrid input types need the RGB extractor, which the port does
-not have yet; they raise ``NotImplementedError``.
+In rgb and hybrid modes the module path crops the person on the host
+(:func:`preprocess_ar_crop`: numpy and ``ops/image.py::resize_linear_u8``,
+the twin of the JAX path's ``cv2.resize``) and feeds the whitened crop to
+the recognizer and to ``elements["img_preprocessed"]``, which an ``add``
+acquisition collects. That crop differs on purpose from the fused step's
+device gather, as the two JAX crops differ.
 """
 
 from __future__ import annotations
@@ -32,10 +36,24 @@ from isbfsar_tpu_torch.ar.recognizer import ActionRecognizer
 from isbfsar_tpu_torch.configs import PipelineConfig
 from isbfsar_tpu_torch.focus.detector import FocusDetector
 from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
-from isbfsar_tpu_torch.ops.image import bgr_to_i420
+from isbfsar_tpu_torch.ops.image import (IMAGENET_SCALE, IMAGENET_SHIFT, bgr_to_i420,
+                                         resize_linear_u8)
 from isbfsar_tpu_torch.utils.transfer import to_device
 
 QUIT = ("close", "exit", "quit", "q")
+
+
+def preprocess_ar_crop(img: np.ndarray, bbox, out: int = 224) -> np.ndarray:
+    """Square crop around the box (x1, x2, y1, y2) of a uint8 BGR frame ->
+    (out, out, 3) whitened float32. The slice is cut at the frame's edges,
+    so there it is not square, and the bilinear resize scales x and y apart."""
+    x1, x2, y1, y2 = bbox
+    xm, ym = int((x1 + x2) / 2), int((y1 + y2) / 2)
+    half = max(xm - x1, ym - y1, 1)
+    crop = img[max(ym - half, 0): ym + half, max(xm - half, 0): xm + half]
+    crop = resize_linear_u8(crop, out, out).astype(np.float32) / np.float32(255.0)
+    return (crop * np.asarray(IMAGENET_SCALE, np.float32)
+            + np.asarray(IMAGENET_SHIFT, np.float32))
 
 
 class Orchestrator:
@@ -69,10 +87,6 @@ class Orchestrator:
         pipeline and injected modules bring their own)."""
         self.config = config or PipelineConfig()
         self.input_type = self.config.main.input_type
-        if self.input_type != "skeleton":
-            raise NotImplementedError(
-                f"input_type={self.input_type!r} needs the RGB extractor; the port runs "
-                f"skeleton mode only")
         self.window_size = self.config.main.window_size
         self.acquisition_time = self.config.main.acquisition_time
         self.skeleton_scale = self.config.main.skeleton_scale
@@ -137,7 +151,12 @@ class Orchestrator:
         focus_token = self.focus.estimate_async(frame_dev)
 
         hpe_res = self.hpe.estimate_collect(hpe_token)
-        if hpe_res is not None:
+        if self.input_type in ("hybrid", "rgb") and hpe_res is not None:
+            elements["bbox"] = hpe_res["bbox"]
+            crop = preprocess_ar_crop(img, hpe_res["bbox"], out=self.config.ar.rgb_size)
+            ar_input["rgb"] = crop
+            elements["img_preprocessed"] = crop
+        if self.input_type in ("hybrid", "skeleton") and hpe_res is not None:
             pose, edges, bbox = hpe_res["pose"], hpe_res["edges"], hpe_res["bbox"]
             if self.edges is None:
                 self.edges = edges
@@ -252,7 +271,9 @@ class Orchestrator:
 
     def learn_command(self, flag) -> str:
         """Acquire a new action clip and insert it: a 3 s countdown, then
-        ``window_size`` frames with a pose, paced over ``acquisition_time``."""
+        ``window_size`` frames paced over ``acquisition_time``: frames with
+        a pose (skeleton, hybrid) or every frame (rgb, whose frames must
+        each hold a crop, as in the JAX package)."""
         requires_focus = "-focus" in flag
         flag = flag[0]
 
@@ -268,8 +289,15 @@ class Orchestrator:
             res = self.get_frame(
                 log="{:.2f}%".format((len(data) / (self.window_size - 1)) * 100)
             )
-            if res.get("pose") is not None:
-                data.append({"poses": res["pose"].reshape(-1)})
+            good = (self.input_type in ("skeleton", "hybrid")
+                    and res.get("pose") is not None) or self.input_type == "rgb"
+            if good:
+                sample = {}
+                if self.input_type in ("skeleton", "hybrid"):
+                    sample["poses"] = res["pose"].reshape(-1)
+                if self.input_type in ("rgb", "hybrid"):
+                    sample["imgs"] = res["img_preprocessed"]
+                data.append(sample)
             while self.clock() - start < off_time:  # pacing
                 time.sleep(0.001)
 

@@ -35,7 +35,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--hub-port", type=int, default=DEFAULT_PORT, help="TCP hub port")
     parser.add_argument("--input-type", default="skeleton",
                         choices=["skeleton", "rgb", "hybrid"],
-                        help="rgb and hybrid need the RGB extractor, not ported yet")
+                        help="rgb and hybrid add the ResNet-50 RGB extractor (random "
+                             "weights: the bundle has no rgb recognizer) and run on the "
+                             "module path only")
     parser.add_argument("--save-dir", default="saved")
     parser.add_argument("--yolo-thresh", type=float, default=None,
                         help="override the person-confidence gate (e.g. 0.0 for "
@@ -85,6 +87,8 @@ def build(args: argparse.Namespace, in_q=None, out_q=None) -> Orchestrator:
     """The orchestrator ``args`` describe, on its queues, warmed up."""
     from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
 
+    if args.fused and args.input_type != "skeleton":
+        raise ValueError("--fused requires skeleton mode")
     config = dataclasses.replace(PipelineConfig.for_input(args.input_type),
                                  param_dtype=args.param_dtype)
     if args.yolo_thresh is not None:
@@ -98,8 +102,6 @@ def build(args: argparse.Namespace, in_q=None, out_q=None) -> Orchestrator:
     if args.fused:
         from isbfsar_tpu_torch.pipeline import FusedPipeline
 
-        if args.input_type != "skeleton":
-            raise ValueError("--fused requires skeleton mode")
         fused = FusedPipeline(config, hpe=hpe, with_focus=True, input_format=args.transport,
                               device=args.device)
     orch = Orchestrator(config, in_queue=in_q, out_queue=out_q, hpe=hpe,

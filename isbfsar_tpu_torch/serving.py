@@ -3,7 +3,8 @@
 
 Every stream shares the nets and the support set (one support-set edit
 updates all streams); each has its own feature window, ring fill count
-and One-Euro filter. The JAX package shards the stream axis over a device
+and One-Euro filter (none in rgb mode, whose state carries an empty
+``smooth``). The JAX package shards the stream axis over a device
 mesh; on one GPU the stream axis is a batch axis of one step: the nets run
 on the S*B frames at once and the recurrences run per stream
 (``FusedPipeline._step_batch_impl`` with a state of leading axis S). On the
@@ -23,7 +24,7 @@ from isbfsar_tpu_torch.utils.transfer import HostCopy
 
 
 class MultiStreamPipeline(_StaticSteps):
-    """S independent streams of the fused skeleton pipeline."""
+    """S independent streams of the fused pipeline, in its input type."""
 
     def __init__(
         self,

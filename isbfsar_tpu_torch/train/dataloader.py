@@ -52,7 +52,7 @@ def _load_frame_pose(path: str, i: int) -> np.ndarray:
 
 
 def _load_frame_image(path: str, i: int) -> np.ndarray:
-    raise NotImplementedError("rgb clips need cv2 and rgb training (ROADMAP A.11)")
+    raise NotImplementedError("rgb clips need a PNG decoder and rgb training (ROADMAP A.12)")
 
 
 class EpisodicSampler:

@@ -8,7 +8,7 @@
 
 It reads a checkpoint of either package. ``--device`` defaults to ``cuda``
 and fails without a card. ``--plot`` needs matplotlib and is not ported
-(ROADMAP A.11).
+(ROADMAP A.18).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def _load_params(path: str):
     state = load_checkpoint(path, {"params": None, "batch_stats": None, "opt_state": None})
     if state.get("batch_stats"):
         raise SystemExit("[eval] the checkpoint holds batch statistics: an rgb/hybrid model "
-                         "(ROADMAP A.11)")
+                         "(rgb/hybrid training and evaluation, ROADMAP A.12)")
     return {"params": state["params"]}
 
 
@@ -53,12 +53,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.plot:
-        print("[eval] --plot needs matplotlib, which the port does not use (ROADMAP A.11)",
+        print("[eval] --plot needs matplotlib, which the port does not use (ROADMAP A.18)",
               file=sys.stderr)
         return 2
     if args.input_type != "skeleton":
         print(f"[eval] --input-type {args.input_type}: the port evaluates skeleton mode only "
-              "(ROADMAP A.11)", file=sys.stderr)
+              "(rgb/hybrid training and evaluation, ROADMAP A.12)", file=sys.stderr)
         return 2
     import torch
 

@@ -7,7 +7,7 @@
   (support, query) pair of classes.
 
 The plots (``plot_fsos``, ``plot_confusion``) need matplotlib and are not
-ported (ROADMAP A.11). :func:`load_model` and :func:`episode_forward` are
+ported (ROADMAP A.18). :func:`load_model` and :func:`episode_forward` are
 shared with ``train/fsos.py``.
 """
 

@@ -30,7 +30,7 @@ def generate_dataset(
 ) -> list:
     """Create root/<class>/<clip>/{i}.npy. Returns the class names."""
     if with_images:
-        raise NotImplementedError("rgb crops need cv2 and rgb training (ROADMAP A.11)")
+        raise NotImplementedError("rgb crops need a PNG encoder and rgb training (ROADMAP A.12)")
     rng = np.random.default_rng(seed)
     names = class_names or [f"action_{c:02d}" for c in range(n_classes)]
     base_pose = rng.normal(0, 0.3, (n_joints, 3)).astype(np.float32)

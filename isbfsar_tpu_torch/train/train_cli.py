@@ -11,8 +11,9 @@ read by path.
 
 ``--device`` defaults to ``cuda`` and fails without a card. ``--resume``
 takes a checkpoint of either package. The JAX package's ``fsdp``/``tp``
-sharding, ``--sp-degree``, ``--remat`` and rgb/hybrid input are not ported
-and exit with an error (ROADMAP A.11).
+sharding and ``--sp-degree`` (several devices, ROADMAP A.17), and ``--remat``
+and rgb/hybrid input (rgb/hybrid training, ROADMAP A.12) are not ported and
+exit with an error.
 """
 
 from __future__ import annotations
@@ -55,14 +56,14 @@ def ntu_splits(all_classes: List[str]) -> Tuple[List[str], List[str], List[str]]
 def unported(args) -> str:
     """Why the options asked for cannot run in the port, or ''."""
     if args.input_type != "skeleton":
-        return f"--input-type {args.input_type}: the port trains skeleton mode only (ROADMAP A.11)"
+        return f"--input-type {args.input_type}: the port trains skeleton mode only (ROADMAP A.12)"
     if args.param_sharding != "replicated":
         return (f"--param-sharding {args.param_sharding}: the port trains on one device; "
-                "fsdp/tp become DDP/FSDP (ROADMAP A.11)")
+                "fsdp/tp become DDP/FSDP (ROADMAP A.17)")
     if args.sp_degree:
-        return "--sp-degree: sequence parallelism is not ported (ROADMAP A.11)"
+        return "--sp-degree: sequence parallelism is not ported (ROADMAP A.17)"
     if args.remat:
-        return "--remat: rematerializes the rgb extractor, which is not ported (ROADMAP A.11)"
+        return "--remat: rematerializes the rgb extractor in training, which is not ported (ROADMAP A.12)"
     return ""
 
 

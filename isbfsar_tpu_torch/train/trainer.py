@@ -25,8 +25,8 @@
 One train step is one forward of the known episode, one of the unknown
 episode against the known one's support features, and one backward.
 Parameters, optimizer state and batches live on ``device``; on the card
-float32 matmuls stay float32 (no TF32). rgb/hybrid training, parameter
-sharding and sequence parallelism are not ported (ROADMAP A.11).
+float32 matmuls stay float32 (no TF32). rgb/hybrid training (ROADMAP A.12),
+parameter sharding and sequence parallelism (ROADMAP A.17) are not ported.
 """
 
 from __future__ import annotations
@@ -120,14 +120,14 @@ class Trainer:
         if param_sharding != "replicated":
             raise NotImplementedError(
                 f"param_sharding={param_sharding!r}: the port trains on one device with "
-                "replicated parameters; fsdp/tp become DDP/FSDP (ROADMAP A.11)")
+                "replicated parameters; fsdp/tp become DDP/FSDP (ROADMAP A.17)")
         if seq_axis is not None:
             raise NotImplementedError(
-                "seq_axis: sequence parallelism is not ported (DDP/FSDP, ROADMAP A.11)")
+                "seq_axis: sequence parallelism is not ported (DDP/FSDP, ROADMAP A.17)")
         if config.input_type != "skeleton":
             raise NotImplementedError(
                 f"input_type={config.input_type!r}: the port trains skeleton mode only "
-                "(rgb/hybrid training, ROADMAP A.11)")
+                "(rgb/hybrid training, ROADMAP A.12)")
         self.cfg = config
         self.device = float32_device(device)
         self.train_sampler = train_sampler
@@ -271,7 +271,7 @@ class Trainer:
         opt_state}), onto this trainer's device."""
         if state.get("batch_stats"):
             raise ValueError("a checkpoint with batch statistics is an rgb/hybrid one "
-                             "(ROADMAP A.11)")
+                             "(rgb/hybrid training, ROADMAP A.12)")
         sd = convert_variables({"params": state["params"]})
         self.model.load_state_dict(sd, strict=True)
         opt = state["opt_state"]

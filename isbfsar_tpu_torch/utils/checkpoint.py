@@ -21,7 +21,7 @@ from isbfsar_tpu_torch.weights import msgpack_dumps, msgpack_restore
 
 def _refuse_orbax(backend: str) -> None:
     if backend == "orbax":
-        raise NotImplementedError("orbax checkpoints need orbax (ROADMAP A.11); use msgpack")
+        raise NotImplementedError("orbax checkpoints need orbax (ROADMAP A.18); use msgpack")
     if backend != "msgpack":
         raise ValueError(f"unknown checkpoint backend {backend!r}")
 

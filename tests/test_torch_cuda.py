@@ -1,5 +1,6 @@
-"""The PyTorch port's CUDA kernels and CUDA graphs on the GPU, and its
-recognizer trainer and evaluators on the card against the CPU. Every test here
+"""The PyTorch port's CUDA kernels and CUDA graphs on the GPU (skeleton,
+rgb and hybrid steps), and its recognizer trainer and evaluators on the
+card against the CPU. Every test here
 needs an NVIDIA GPU and nvcc and skips elsewhere. The file imports neither
 JAX nor the JAX package, so it runs on a machine without them:
 
@@ -324,6 +325,69 @@ def test_bgr_graphs_equal_eager(ci_pipes):
         for key in b:
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"output {i} {key}")
 
+
+# rgb and hybrid at the CI operating point (ResNet-50 at a 64 crop, float32,
+# focus on): the card's stream_batched (B=8) against its step, and the card
+# against the CPU, in the packed fields and the final feature ring; what an
+# H100 read is in chip_smoke.py beside TOL_CI_RGB, whose limits these are.
+TOL_RGB = {"pose": 1e-6, "pose_abs": 1e-6, "distance": 2e-6, "conf": 1e-6, "bbox": 0.0,
+           "probs": 4e-5, "is_true": 1e-6, "f_score": 1e-6, "f_bbox": 2e-4,
+           "f_landmarks": 6e-4, "f_head_position": 4e-6, "f_head_rotvec": 2e-5,
+           "f_norm_head_rot2d": 2e-5, "f_gaze": 1.5e-5, "f_norm_gaze": 1.5e-5, "window": 4e-6}
+EXACT = ("pose_ok", "ar_ready", "f_found")
+
+
+@pytest.fixture(scope="module", params=["rgb", "hybrid"])
+def rgb_pipes(request):
+    """build_ci in rgb or hybrid on the card with CUDA graphs and eager,
+    sharing the nets and the support set, and 18 frames at their size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: CUDA graphs have no CPU mode")
+    from isbfsar_tpu_torch.profile_slice import build_ci, ci_frames, twin
+
+    graphs = build_ci("cuda", cuda_graphs=True, input_type=request.param)
+    return graphs, twin(graphs, cuda_graphs=False), ci_frames(18, faces=True)
+
+
+def _assert_within(got, want, tol, what):
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        for key in b:
+            if key in EXACT:
+                np.testing.assert_array_equal(a[key], b[key], err_msg=f"{what} {i} {key}")
+            else:
+                np.testing.assert_allclose(a[key], b[key], atol=tol[key], rtol=0,
+                                           err_msg=f"{what} {i} {key}")
+
+
+def test_rgb_graphs_equal_eager(rgb_pipes):
+    graphs, eager, frames = rgb_pipes
+    before = [k.launches for k in (fused_input.fused_i420_inputs, head_pose.focus_geometry)]
+    ours = _run(graphs, frames)
+    after = [k.launches for k in (fused_input.fused_i420_inputs, head_pose.focus_geometry)]
+    assert [a - b for a, b in zip(after, before)] == [18 + 4, 18 + 4]  # one per dispatch
+    ref = _run(eager, frames)
+    assert sorted(graphs._graphs) == [1, 8] and any(o["ar_ready"] for o in ours)
+    _assert_within(ours, ref, dict.fromkeys(TOL_RGB, 0.0), "graphs vs eager")
+    np.testing.assert_array_equal(graphs._state.window.cpu(), eager._state.window.cpu())
+
+
+def test_rgb_batched_matches_per_frame(rgb_pipes):
+    graphs, _, frames = rgb_pipes
+    outs = _run(graphs, frames)
+    _assert_within(outs[18:], outs[:18], TOL_RGB, "stream_batched vs step")
+
+
+def test_rgb_card_matches_cpu(rgb_pipes):
+    from isbfsar_tpu_torch.profile_slice import build_ci
+
+    graphs, _, frames = rgb_pipes
+    cpu = build_ci("cpu", input_type=graphs.input_type)
+    ours, ref = _run(graphs, frames), _run(cpu, frames)
+    _assert_within(ours, ref, TOL_RGB, "card vs CPU")
+    np.testing.assert_allclose(graphs._state.window.cpu().numpy(), cpu._state.window.numpy(),
+                               atol=TOL_RGB["window"], rtol=0)
+    if graphs.input_type == "rgb":
+        assert all(not o["pose"].any() for o in ours)  # the detector alone
 
 
 @pytest.fixture(scope="module")

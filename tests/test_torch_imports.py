@@ -6,7 +6,8 @@ chip_smoke, and runs the slice with focus on the CPU for one frame at CI
 size, with seeded torch weights for the pose stack and the focus-ci bundle
 read by the port's own decoder, then the serving layer on the same slice:
 the orchestrator's fused and module paths for a frame each, and a
-multi-stream step; then the recognizer's training and evaluation: a
+multi-stream step; an rgb and a hybrid step, each with the module path's
+host crop; then the recognizer's training and evaluation: a
 training epoch of 2 steps on a synthetic tree, a checkpoint written and
 read back, and one FSOS repeat."""
 
@@ -80,8 +81,30 @@ SCRIPT = textwrap.dedent(r"""
     assert len(multi.step(np.stack([frame, frame]))) == 2
     assert parse_args(["--fused"]).device == "cuda"
 
-    import dataclasses, tempfile
+    # rgb (the detector alone) and hybrid: one fused step each, and the
+    # module path's host crop with the numpy twin of cv2's resize
+    import dataclasses
     from isbfsar_tpu_torch.configs import ARConfig
+    for input_type in ("rgb", "hybrid"):
+        rcfg = PipelineConfig(
+            main=dataclasses.replace(MainConfig.for_input(input_type), cam_width=160, cam_height=120),
+            intrinsics=intr, hpe=dataclasses.replace(hpe_cfg, just_box=input_type == "rgb"),
+            ar=ARConfig.for_input(input_type, rgb_size=32))
+        rhpe = HumanPoseEstimator(rcfg.hpe, intr, seed=0, backbone_stages=V2_TINY,
+                                  frame_shape=(120, 160), yolo_width=0.25, device="cpu")
+        rpipe = FusedPipeline(rcfg, hpe=rhpe, focus=focus, device="cpu")
+        clip = {"imgs": np.zeros((8, 32, 32, 3), np.float32)}
+        if input_type == "hybrid":
+            clip["poses"] = np.ones((8, 90), np.float32)
+        rpipe.ar.train({"flag": "wave", "data": clip})
+        rpipe.start()
+        out = rpipe.step(frame)
+        assert all(np.isfinite(v).all() for v in out.values())
+        assert (not out["pose"].any()) == (input_type == "rgb")
+        module = Orchestrator(rcfg, hpe=rhpe, focus=focus, ar=rpipe.ar, device="cpu")
+        assert module.get_frame(img=bgr)["img_preprocessed"].shape == (32, 32, 3)
+
+    import tempfile
     from isbfsar_tpu_torch.train.dataloader import EpisodicSampler, batch_iterator
     from isbfsar_tpu_torch.train.fsos import evaluate_fsos
     from isbfsar_tpu_torch.train.synthetic import generate_dataset

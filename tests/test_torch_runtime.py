@@ -345,9 +345,18 @@ class TestOrchestrator:
         orchestrator._in_queue = FrameQueue(ci["frames"])
 
     def test_rgb_and_hybrid_are_not_ported(self, ci):
+        """The orchestrator once refused rgb and hybrid; it takes both now
+        and feeds the recognizer the person's crop
+        (tests/test_torch_rgb_serving.py holds them against the JAX one)."""
         for input_type in ("rgb", "hybrid"):
-            with pytest.raises(NotImplementedError):
-                Orchestrator(tc.PipelineConfig.for_input(input_type), device="cpu")
+            ar_cfg = dataclasses.replace(tc.ARConfig.for_input(input_type), seq_len=SEQ, rgb_size=64)
+            cfg = dataclasses.replace(ci["tcfg"], ar=ar_cfg, main=dataclasses.replace(
+                ci["tcfg"].main, input_type=input_type))
+            orch = Orchestrator(cfg, hpe=ci["thpe"], focus=ci["tfocus"],
+                                ar=ActionRecognizer(ar_cfg, device="cpu"), device="cpu")
+            elements = orch.get_frame(img=ci["frames"][0])
+            assert elements["img_preprocessed"].shape == (64, 64, 3)
+            assert ("pose" in elements) == (input_type == "hybrid")
 
 
 class TestIPC:

@@ -449,14 +449,14 @@ def test_episodic_batch_matches_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"param_sharding": "fsdp"}, "A.11"), ({"param_sharding": "tp"}, "A.11"),
-    ({"seq_axis": "sp"}, "A.11"), ({"input_type": "rgb"}, "A.11")])
+    ({"param_sharding": "fsdp"}, "A.17"), ({"param_sharding": "tp"}, "A.17"),
+    ({"seq_axis": "sp"}, "A.17"), ({"input_type": "rgb"}, "A.12")])
 def test_trainer_refuses_what_the_port_lacks(tmp_path, kw, what):
     cfg = tc.ARConfig.for_input(kw.pop("input_type")) if "input_type" in kw \
         else tc.ARConfig.for_input("skeleton")
     with pytest.raises(NotImplementedError, match=what):
         ttr.Trainer(cfg, log_dir=str(tmp_path), use_wandb=False, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.18"):
         tckpt.save_checkpoint(str(tmp_path), 0, {}, backend="orbax")
 
 
@@ -516,13 +516,13 @@ def test_train_and_eval_clis_on_the_cpu(cli_trees):
 
 
 @pytest.mark.parametrize("module,args,why", [
-    ("train_cli", ["--param-sharding", "fsdp"], "A.11"),
-    ("train_cli", ["--param-sharding", "tp"], "A.11"),
-    ("train_cli", ["--sp-degree", "2"], "A.11"),
-    ("train_cli", ["--remat"], "A.11"),
-    ("train_cli", ["--input-type", "rgb"], "A.11"),
+    ("train_cli", ["--param-sharding", "fsdp"], "A.17"),
+    ("train_cli", ["--param-sharding", "tp"], "A.17"),
+    ("train_cli", ["--sp-degree", "2"], "A.17"),
+    ("train_cli", ["--remat"], "A.12"),
+    ("train_cli", ["--input-type", "rgb"], "A.12"),
     ("train_cli", [], "no CUDA device"),
-    ("eval_cli", ["--plot", "x.png"], "A.11"),
+    ("eval_cli", ["--plot", "x.png"], "A.18"),
     ("eval_cli", [], "no CUDA device")])
 def test_clis_refuse_what_they_cannot_run(cli_trees, module, args, why):
     if why == "no CUDA device" and torch.cuda.is_available():
