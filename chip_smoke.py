@@ -69,7 +69,8 @@ Phases, each timed; any failure exits non-zero and prints no result:
    ``load_checkpoint`` reads back as the trained weights. The first 5 train
    steps run on the card and on the CPU from one init on the same batches
    (losses and every parameter within ``TOL_TRAIN``, ``fs_correct`` and the
-   gate equal), and so do ``evaluate_fsos`` (k 5, 3 repeats, batch 8) and
+   gate equal; the CPU takes the card's side of each ReLU whose input the
+   two put on either side of zero within ``RELU_TIE``), and so do ``evaluate_fsos`` (k 5, 3 repeats, batch 8) and
    ``calibrate_os_threshold`` with the trained weights (scores within
    ``TOL_FSOS_SCORE``; ``known``, ``fs_correct``, the metrics and the
    threshold equal). The train and eval CLIs run on the card as
@@ -96,6 +97,22 @@ Phases, each timed; any failure exits non-zero and prints no result:
    without a limit, and one ``add`` acquisition on a fake clock that the
    recognizer then scores; the I420 kernel launches 0 times there and
    the focus kernel once a frame.
+9. rgb and hybrid training: (a) at the CI size (a 32 crop, batch 2,
+   ``episodic_batch``) 3 train steps on the card and on the CPU, each from
+   the card's state, with the losses, every parameter and every running
+   stat within ``TOL_TRAIN_RGB`` and ``fs_correct`` and the gate equal;
+   (b) at full width (``ARConfig.for_input``: the ResNet-50 at 224 in
+   float32, seq_len 8, way 5; batch 4, cut from 32 for memory) on batches
+   of the loader over a synthetic tree of 224x224 PNG crops: one step
+   without remat and one with from one init and batch (cuDNN
+   deterministic; peak memory, the remat peak at most ``REMAT_PEAK_RATIO``
+   of the other, the two steps equal within ``TOL_REMAT``), then 5 timed
+   steps (p50 and episodes/s) with the loader's p50 per batch beside them,
+   every loss finite; (c) ``train_cli --input-type rgb --remat`` on a
+   30-class tree of 64x64 crops and ``eval_cli fsos --input-type rgb`` on
+   its checkpoint, which must hold the ResNet-50's running stats, as
+   subprocesses beside (a). Neither kernel is on this path: both counts
+   must stay 0.
 
 The three weight files are required: a missing one fails the run.
 
@@ -184,6 +201,20 @@ STREAMS, STREAM_BATCH, STREAM_TICKS = 4, 16, 64
 # tests/test_torch_cuda.py's accumulated gradients (accumulation over 2)
 # read 6.71e-8. The limits are three to five times that.
 TOL_TRAIN = {"fs_loss": 3e-7, "os_loss": 3e-7, "params": 3e-7, "acc_grads": 3e-7}
+# A ReLU whose input lies within rounding of zero can fall on one side on
+# the card and on the other on the CPU, and that one decision moves the
+# step's update far past TOL_TRAIN. ``python -m tests.torch_relu_ties
+# --card`` on an H100 host: a step puts 4-5 ReLU inputs within 1e-6 of
+# zero; flipping one of them in one CPU step moves the parameters by
+# 4.9e-7 to 1.85e-5; over 8 sets of 5 loader batches one set split one
+# input between the card and the CPU, and free-running from there the
+# parameters parted by 8.57e-6 and fs_loss by 5.84e-6 (the 7 others read
+# 1.49e-8-2.98e-8 and 1.19e-7). So the CPU's step takes the card's side
+# of each ReLU whose input the two split while both lie within RELU_TIE of
+# zero, and a split wider than that fails. The same run read the two
+# runs' ReLU inputs at most 8.64e-7 apart, each step from one state; the
+# bound is about five times that.
+RELU_TIE = 4e-6
 TOL_FSOS_SCORE = 5e-7
 TRAIN_STEPS_CHECKED = 5
 # 5 steps of 32 episodes an epoch (the JAX defaults' epoch is 10000 // 32):
@@ -210,6 +241,37 @@ RGB_MODES = ("rgb", "hybrid")
 # then the module path to hybrid alone)
 RGB_STEPS, RGB_BATCHED, RGB_EAGER = 16, 64, 16
 RGB_MODULE_FRAMES = 12  # timed module-path frames per mode
+# Phase 9, rgb and hybrid training, float32 without TF32. (a) The card
+# against the CPU at the CI size (ARConfig.for_input(mode, rgb_size=32,
+# batch_size=2), episodic_batch batches), 3 train steps with the
+# discriminator on, each from the card's state: the losses, every parameter
+# and every running-stat leaf after it. Each step starts from the same
+# state because free-running trajectories part at this size: the random
+# ResNet-50's batch statistics over 1x1 maps make its float32 gradients
+# ill-conditioned, and two CPU runs that differ only in their thread count
+# part by orders of magnitude a step (``python -m tests.torch_rgb_parity``).
+# Four runs on an H100 read, rgb / hybrid: fs_loss up to 1.87e-3 / 1.23e-3
+# (of 1-10), os_loss 1.5e-6 to 1.49e-5 / up to 6.3e-6 (it moves from run to
+# run: cuDNN's backward convolutions are not deterministic), parameters
+# 2.36e-2 / 4.1e-3 (the stem's updates, lr 3e-4 times gradients in the
+# thousands, reach 0.75: the float32 gradient there is a few percent off in
+# any two summation orders), running stats 1.68e-5 / 1.56e-5. The limits
+# are three to four times the largest reading.
+TOL_TRAIN_RGB = {"fs_loss": 6e-3, "os_loss": 6e-5, "params": 8e-2, "batch_stats": 6e-5}
+RGB_TRAIN_CI_STEPS = 3
+# (b) At full width (the ResNet-50 at 224, seq_len 8, way 5, the lr of
+# for_input) on a synthetic tree with 224x224 PNG crops, 6 classes x 1 clip
+# (a 5-way episode and its unknown class). Cut: batch 4, not the production
+# 32: an episode pushes (5 + 1 + 1) x 8 = 56 frames through the ResNet-50
+# with gradients, and at about 0.1-0.16 GB of float32 activations a frame
+# batch 32 would need 190 GB or more. One step with remat against one
+# without on the same batch (cuDNN deterministic), then 5 timed steps.
+RGB_TRAIN_BATCH, RGB_TRAIN_STEPS = 4, 5
+REMAT_PEAK_RATIO = 0.7  # remat's peak memory at most this share of the peak without
+# With cuDNN deterministic the step with remat and the one without ran the
+# same kernels on the same values: an H100 read 0 in both modes at 224 and
+# at 112, so they must be bit-equal.
+TOL_REMAT = {"params": 0.0, "batch_stats": 0.0}
 EXACT = ("pose_ok", "ar_ready", "f_found")
 KERNELS = (fused_input.fused_i420_inputs, head_pose.focus_geometry)
 
@@ -950,17 +1012,65 @@ def train_trees(root: str) -> tuple:
     return train, held
 
 
-def check_train_steps(cfg, batches: list, root: str) -> dict:
+def relu_inputs(model) -> list:
+    """The skeleton recognizer's layers whose outputs go through a ReLU."""
+    mods = [model.sk_extractor.fc1, model.sk_extractor.fc2]
+    if hasattr(model, "discriminator"):
+        mods += [model.discriminator.fc1, model.discriminator.fc2]
+    return mods
+
+
+def step_card_then_cpu(card, cpu, batch: dict) -> tuple:
+    """One train step of the trainer ``card``, then one of ``cpu`` on the same
+    batch that takes the card's side of every ReLU tie (``RELU_TIE``);
+    returns both steps' metrics (numpy) and the number of ties taken."""
+    seen = [[] for _ in relu_inputs(card.model)]
+    hooks = [m.register_forward_hook(lambda mod, args, out, rec=rec: rec.append(out.detach().cpu()))
+             for m, rec in zip(relu_inputs(card.model), seen)]
+    try:
+        got_card = card.step(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    ties = [0]
+
+    def align(out, rec):
+        theirs, ours = rec.pop(0), out.detach()
+        split = (theirs > 0) != (ours > 0)
+        if not split.any():
+            return None
+        wide = float(torch.maximum(theirs.abs(), ours.abs())[split].max())
+        if wide > RELU_TIE:
+            raise AssertionError(f"a ReLU input {wide:.3g} from zero lies on one side on the "
+                                 f"card and on the other on the CPU (ties up to {RELU_TIE:g})")
+        ties[0] += int(split.sum())
+        return torch.where(split, out + (theirs - ours), out)  # the card's value, our gradient
+
+    hooks = [m.register_forward_hook(lambda mod, args, out, rec=rec: align(out, rec))
+             for m, rec in zip(relu_inputs(cpu.model), seen)]
+    try:
+        got_cpu = cpu.step(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return tuple({k: v.detach().cpu().numpy() for k, v in m.items()}
+                 for m in (got_card, got_cpu)) + (ties[0],)
+
+
+def check_train_steps(cfg, batches: list, root: str) -> tuple:
     """The first train steps on the card and on the CPU from one init on the
-    same batches; returns the largest differences."""
+    same batches; returns the largest differences and the ReLU ties the CPU
+    took from the card."""
     from isbfsar_tpu_torch.train.trainer import Trainer
 
     pair = {d: Trainer(cfg, log_dir=os.path.join(root, f"pair_{d}"), use_wandb=False, seed=1,
                        device=d) for d in ("cuda", "cpu")}
     err = {k: 0.0 for k in ("fs_loss", "os_loss", "params")}
+    ties = 0
     for i, batch in enumerate(batches):
-        got = {d: {k: v.detach().cpu().numpy() for k, v in t.step(batch).items()}
-               for d, t in pair.items()}
+        card, cpu, n = step_card_then_cpu(pair["cuda"], pair["cpu"], batch)
+        got = {"cuda": card, "cpu": cpu}
+        ties += n
         for k in ("fs_correct", "os_weights"):
             if not np.array_equal(got["cuda"][k], got["cpu"][k]):
                 raise AssertionError(f"train step {i}: {k} differs between the card and the CPU")
@@ -969,7 +1079,7 @@ def check_train_steps(cfg, batches: list, root: str) -> dict:
     cpu = pair["cpu"].model.state_dict()
     for name, t in pair["cuda"].model.state_dict().items():
         err["params"] = max(err["params"], float((t.cpu() - cpu[name]).abs().max()))
-    return err
+    return err, ties
 
 
 def check_fsos(cfg, params, card: dict, train: str, held: str) -> tuple:
@@ -1084,7 +1194,7 @@ def run_train(card: str) -> dict:
         with ThreadPoolExecutor(max_workers=1) as pool:
             cli = pool.submit(clis)
             err_fsos, calib = check_fsos(cfg, params, fsos_card, train, held)
-            err_train = check_train_steps(cfg, first, root)
+            err_train, ties = check_train_steps(cfg, first, root)
             out, cli_s = cli.result(timeout=660)
         lines = [json.loads(line) for line in out.strip().splitlines()]
         if len(lines) != 3 or "os_calibration" not in lines[1]:
@@ -1100,7 +1210,8 @@ def run_train(card: str) -> dict:
         f"of the loop; {card}")
     log(f"[train] the card vs the CPU over {len(first)} steps: max|diff| "
         + " ".join(f"{k}={v:.3g} (limit {TOL_TRAIN[k]:g})" for k, v in err_train.items())
-        + "; fs_correct and the gate equal")
+        + f"; fs_correct and the gate equal; {ties} ReLU ties (inputs within {RELU_TIE:g} of "
+        "zero) taken from the card")
     log(f"[train] FSOS on the card (k 5, 3 repeats, batch 8, trained weights): "
         f"{summarize(fsos_card)}, "
         f"{qps:.1f} queries/s (host loading included); scores vs the CPU max|diff| "
@@ -1114,6 +1225,207 @@ def run_train(card: str) -> dict:
     if over:
         raise AssertionError("the card vs the CPU: " + "; ".join(over))
     check_launches("train and offline eval", counts, 0)
+    return counts
+
+
+def state_errors(a: dict, b: dict) -> dict:
+    """Largest differences between two trainers' parameters and running
+    stats (their models' state dicts)."""
+    b = b.model.state_dict()
+    err = {"params": 0.0, "batch_stats": 0.0}
+    for name, t in a.model.state_dict().items():
+        key = "batch_stats" if name.endswith((".mean", ".var")) else "params"
+        err[key] = max(err[key], float((t.cpu() - b[name].cpu()).abs().max()))
+    return err
+
+
+def check_rgb_train_small(mode: str, root: str) -> dict:
+    """Phase 9a: RGB_TRAIN_CI_STEPS train steps in ``mode`` at the CI size on
+    the card and on the CPU on the same batches, each step from the card's
+    state; returns the largest differences. fs_correct and the gate must be
+    equal."""
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.synthetic import episodic_batch
+    from isbfsar_tpu_torch.train.trainer import Trainer
+
+    cfg = ARConfig.for_input(mode, rgb_size=32, batch_size=2)
+    pair = {d: Trainer(cfg, log_dir=os.path.join(root, f"{mode}_{d}"), use_wandb=False, seed=1,
+                       device=d) for d in ("cuda", "cpu")}
+    err = dict.fromkeys(("fs_loss", "os_loss", "params", "batch_stats"), 0.0)
+    for i in range(RGB_TRAIN_CI_STEPS):
+        pair["cpu"].load_state(pair["cuda"].state())
+        batch = episodic_batch(cfg, cfg.batch_size, cfg.rgb_size, mode, seed=i)
+        got = {d: {k: v.detach().cpu().numpy() for k, v in t.step(batch).items()}
+               for d, t in pair.items()}
+        for k in ("fs_correct", "os_weights"):
+            if not np.array_equal(got["cuda"][k], got["cpu"][k]):
+                raise AssertionError(f"{mode} train step {i}: {k} differs between the card and "
+                                     "the CPU")
+        for k in ("fs_loss", "os_loss"):
+            err[k] = max(err[k], float(abs(got["cuda"][k] - got["cpu"][k])))
+        for k, v in state_errors(pair["cuda"], pair["cpu"]).items():
+            err[k] = max(err[k], v)
+    return err
+
+
+def remat_pair(cfg, batch: dict, root: str) -> tuple:
+    """One train step without remat and one with, from one init on
+    ``batch`` with cuDNN deterministic: (the trainer without remat, the
+    peak memory of each step, their parameters' and running stats' largest
+    differences after it, both steps' losses)."""
+    import dataclasses
+
+    from isbfsar_tpu_torch.train.trainer import Trainer
+
+    trainers = {remat: Trainer(dataclasses.replace(cfg, remat=remat), use_wandb=False,
+                               log_dir=os.path.join(root, f"remat_{remat}"), seed=0)
+                for remat in (False, True)}
+    peak, losses = {}, []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat, trainer in trainers.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            peak[remat] = torch.cuda.max_memory_allocated()
+            losses.append({k: float(metrics[k]) for k in ("fs_loss", "os_loss")})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return trainers[False], peak, state_errors(trainers[False], trainers[True]), losses
+
+
+def run_rgb_train_full(mode: str, tree: str) -> dict:
+    """Phase 9b: ``mode`` at full width, batch RGB_TRAIN_BATCH, on the
+    loader's batches: ``remat_pair`` on the first batch, then the steps after
+    it timed, the card synchronised around each."""
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.dataloader import EpisodicSampler, batch_iterator
+
+    cfg = ARConfig.for_input(mode, batch_size=RGB_TRAIN_BATCH,
+                             n_task=RGB_TRAIN_BATCH * (RGB_TRAIN_STEPS + 1))
+    sampler = EpisodicSampler(tree, k=cfg.way, n_task=cfg.n_task, l=cfg.seq_len,
+                              input_type=mode, seed=0)
+    load_s, batches = [], []
+    it = batch_iterator(sampler, cfg.batch_size)
+    while True:
+        t = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        load_s.append(time.perf_counter() - t)
+        batches.append(batch)
+    with tempfile.TemporaryDirectory() as root:
+        trainer, peak, remat_err, losses = remat_pair(cfg, batches[0], root)
+        step_s = []
+        for batch in batches[1:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append({k: float(metrics[k]) for k in ("fs_loss", "os_loss")})
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"{mode}: a non-finite loss at full width: {losses}")
+    return {"step_ms": p50_ms(step_s), "load_ms": p50_ms(load_s), "steps": len(step_s),
+            "peak_gib": {k: v / 2**30 for k, v in peak.items()}, "remat_err": remat_err,
+            "losses": losses}
+
+
+def count_leaves(tree: dict) -> int:
+    return sum(count_leaves(v) if isinstance(v, dict) else 1 for v in tree.values())
+
+
+def run_rgb_train_clis(root: str) -> tuple:
+    """Phase 9c: train_cli in rgb with --remat on a 30-class tree of 64x64
+    PNG crops (the loader resizes them to 224), then eval_cli fsos in rgb on
+    its checkpoint; returns (the checkpoint's running-stat leaves, the FSOS
+    line, seconds)."""
+    from isbfsar_tpu_torch.train.synthetic import generate_dataset
+    from isbfsar_tpu_torch.utils import checkpoint
+
+    t = time.perf_counter()
+    train, held = os.path.join(root, "cli_train"), os.path.join(root, "cli_held")
+    generate_dataset(train, n_classes=30, clips_per_class=1, with_images=True, image_size=64,
+                     seed=0)
+    generate_dataset(held, n_classes=5, clips_per_class=1, with_images=True, image_size=64,
+                     seed=1)
+    log_dir = os.path.join(root, "cli_log")
+    run_cli(["isbfsar_tpu_torch.train.train_cli", "--data", train, "--input-type", "rgb",
+             "--remat", "--epochs", "2", "--batch-size", "2", "--n-task", "4",
+             "--log-dir", log_dir], 300)
+    ckpt = checkpoint.latest_checkpoint(os.path.join(log_dir, "checkpoints"))
+    state = checkpoint.load_checkpoint(ckpt, {"params": None, "batch_stats": None,
+                                              "opt_state": None})
+    n_stats = count_leaves(state["batch_stats"])
+    if n_stats != 2 * 53:  # mean and var of the ResNet-50's 53 BatchNorms
+        raise AssertionError(f"{ckpt}: {n_stats} running-stat leaves")
+    out = run_cli(["isbfsar_tpu_torch.train.eval_cli", "fsos", "--input-type", "rgb", "--data",
+                   held, "--checkpoint", ckpt, "--repeats", "2"], 300)
+    line = json.loads(out.strip().splitlines()[-1])
+    if set(line) != {"FSOS-ACC", "FS-ACC", "OS-ACC"}:
+        raise AssertionError(f"eval_cli printed {out!r}")
+    return n_stats, line, time.perf_counter() - t
+
+
+def run_rgb_train(card: str) -> dict:
+    """Phase 9: rgb and hybrid training and evaluation on the card; returns
+    the kernels' launches on this path (0 each)."""
+    from isbfsar_tpu_torch.train.synthetic import generate_dataset
+
+    zero_launches()
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        # the CLIs run beside the untimed comparisons with the CPU
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            cli = pool.submit(run_rgb_train_clis, root)
+            small = {mode: check_rgb_train_small(mode, root) for mode in RGB_MODES}
+            n_stats, fsos, cli_s = cli.result(timeout=660)
+        log(f"[rgb train] 9a and 9c in {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        tree = os.path.join(root, "tree224")
+        generate_dataset(tree, n_classes=6, clips_per_class=1, with_images=True, seed=0)
+        log(f"[rgb train] a tree of 6 x 1 clips of 16 224x224 PNG crops written in "
+            f"{time.perf_counter() - t:.2f} s")
+        full = {}
+        for mode in RGB_MODES:
+            t = time.perf_counter()
+            full[mode] = run_rgb_train_full(mode, tree)
+            log(f"[rgb train] 9b {mode} in {time.perf_counter() - t:.1f} s")
+    counts = launches()
+
+    for mode in RGB_MODES:
+        log(f"[rgb train] {mode}, the card vs the CPU over {RGB_TRAIN_CI_STEPS} steps at "
+            f"rgb_size 32, batch 2: max|diff| " + " ".join(
+                f"{k}={v:.3g} (limit {TOL_TRAIN_RGB[k]:g})" for k, v in small[mode].items())
+            + "; fs_correct and the gate equal")
+    for mode, r in full.items():
+        log(f"[rgb train] {mode} at full width (ResNet-50 at 224, seq_len 8, way 5, batch "
+            f"{RGB_TRAIN_BATCH}): train step p50 {r['step_ms']:.2f} ms over {r['steps']} steps "
+            f"(the card synchronised around each), {RGB_TRAIN_BATCH / r['step_ms'] * 1e3:.1f} "
+            f"episodes/s; batch_iterator p50 {r['load_ms']:.1f} ms per batch "
+            f"({RGB_TRAIN_BATCH} x 7 clips x 16 PNG decodes) = "
+            f"{r['load_ms'] / r['step_ms']:.2f}x the step; peak memory "
+            f"{r['peak_gib'][False]:.2f} GiB without remat, {r['peak_gib'][True]:.2f} GiB with "
+            f"({r['peak_gib'][True] / r['peak_gib'][False]:.3f}x, limit {REMAT_PEAK_RATIO}); "
+            f"remat vs not after one step: " + " ".join(
+                f"{k}={v:.3g} (limit {TOL_REMAT[k]:g})" for k, v in r["remat_err"].items())
+            + f"; losses {r['losses']}; {card}")
+    log(f"[rgb train] train_cli --input-type rgb --remat (2 epochs, n_task 4, batch 2) and "
+        f"eval_cli fsos --input-type rgb: exit 0 and exit 0 in {cli_s:.1f} s; the checkpoint "
+        f"holds {n_stats} running-stat leaves; FSOS {fsos}")
+    over = [f"{mode} {k} {v} > {TOL_TRAIN_RGB[k]}" for mode, e in small.items()
+            for k, v in e.items() if not v <= TOL_TRAIN_RGB[k]]
+    for mode, r in full.items():
+        over += [f"{mode} remat {k} {v} > {TOL_REMAT[k]}" for k, v in r["remat_err"].items()
+                 if not v <= TOL_REMAT[k]]
+        ratio = r["peak_gib"][True] / r["peak_gib"][False]
+        if not ratio <= REMAT_PEAK_RATIO:
+            over.append(f"{mode} remat peak {ratio:.3f}x > {REMAT_PEAK_RATIO}")
+    if over:
+        raise AssertionError("rgb and hybrid training: " + "; ".join(over))
+    check_launches("rgb and hybrid training", counts, 0)
     return counts
 
 
@@ -1161,6 +1473,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_rgb(card))
     phases["rgb"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path["rgb and hybrid Trainer.step, train_cli, eval_cli"] = run_rgb_train(card)
+    phases["rgb_train"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

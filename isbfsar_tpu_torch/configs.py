@@ -109,7 +109,7 @@ class ARConfig:
     ckpt_backend: str = "msgpack"  # the port writes msgpack only
     data_path: Optional[str] = None
     compute_dtype: str = "float32"
-    remat: bool = False  # rgb extractor only; the port trains skeleton mode
+    remat: bool = False  # per-block rematerialization of the rgb extractor in training
     # open-set accept threshold for the live display; train/fsos.py::
     # calibrate_os_threshold picks one on training classes
     os_threshold: float = 0.66

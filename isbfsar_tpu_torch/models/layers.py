@@ -1,8 +1,13 @@
 """Layers shared by the port's nets, with Flax's parameter names and numerics.
 
-* :class:`BatchNorm` (inference) normalizes as ``flax.linen.BatchNorm`` does,
-  in float32 and cast back to the input dtype, with one ``F.batch_norm``
-  kernel (its statistics and affine parameters stay float32).
+* :class:`BatchNorm` normalizes as ``flax.linen.BatchNorm`` does, in float32
+  and cast back to the input dtype: in inference (the default) with its
+  running averages, in one ``F.batch_norm`` kernel; in training (``train=True``,
+  Flax's ``use_running_average=False``) with the batch's mean and biased
+  variance ``E[x²] - E[x]²`` (Flax's fast variance, clamped at 0). The
+  running averages move only through :meth:`BatchNorm.update`, by momentum
+  0.9 with that same biased variance (torch's own update would take the
+  unbiased one).
 * :class:`Conv` takes the compute dtype of its input and casts its stored
   weights to it, as a Flax ``nn.Conv(dtype=...)`` does; ``padding="SAME"``
   pads like XLA (for stride 2 on even sizes: 0 before, 1 after).
@@ -19,10 +24,16 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# the running averages' momentum in training: the ResNets' (JAX
+# models/resnet.py:98-100); the port's other nets never train
+BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
@@ -34,8 +45,37 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:  # NCHW
+        """``train`` normalizes with the batch's statistics and appends
+        ``(self, mean, var)`` (detached) to ``stats`` if it is a list, for
+        the caller to hand to :meth:`update` or to drop; the running
+        averages are read only in inference and never written here."""
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0,
+                                self.eps)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as Flax
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        if stats is not None:
+            stats.append((self, mean.detach(), var.detach()))
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running averages toward one batch's statistics, as Flax's
+        ``batch_stats`` update does."""
+        self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mean)
+        self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+
+
+def update_running_stats(stats: list) -> None:
+    """Apply the batch statistics a training forward collected, in the order
+    they were computed."""
+    for norm, mean, var in stats:
+        norm.update(mean, var)
 
 
 class Conv(nn.Module):

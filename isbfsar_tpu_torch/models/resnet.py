@@ -6,17 +6,28 @@ stride-2 convolution padded (3, 3), BatchNorm, ReLU and a 3x3/2 max-pool
 padded (1, 1) with -inf, as Flax's ``max_pool`` pads. Then four stages of
 :class:`BasicBlock` (ResNet-18: 2, 2, 2, 2) or :class:`Bottleneck`
 (ResNet-50: 3, 4, 6, 3) and a global average pool, which returns float32
-features. BatchNorm (inference) eps 1e-5. The convolutions compute in
+features. BatchNorm eps 1e-5, momentum 0.9. The convolutions compute in
 ``dtype`` and cast their float32 weights to it, as the Flax modules do.
+
+``forward(x, train=True, stats=...)`` is Flax's ``train=True`` with
+``mutable=["batch_stats"]``: every BatchNorm normalizes with its batch's
+statistics and appends them to ``stats`` in call order
+(``layers.update_running_stats`` applies them). ``remat`` recomputes each
+residual block in the backward pass (``torch.utils.checkpoint``, per block
+as Flax's ``nn.remat`` around the block; around the whole net it would save
+nothing): a block inside the checkpoint returns its statistics, which are
+collected outside it, so the recomputation in the backward pass moves no
+running average a second time.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from isbfsar_tpu_torch.models.layers import BatchNorm, Conv
 
@@ -38,12 +49,13 @@ class BasicBlock(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train, stats))
+        y = self.bn2(self.conv2(y), train, stats)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(self.downsample_conv(x), train, stats)
         return F.relu(y + residual)
 
 
@@ -68,14 +80,22 @@ class Bottleneck(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), train, stats))
+        y = F.relu(self.bn2(self.conv2(y), train, stats))
+        y = self.bn3(self.conv3(y), train, stats)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(self.downsample_conv(x), train, stats)
         return F.relu(y + residual)
+
+
+def _block_in_training(block: nn.Module, x: torch.Tensor):
+    """One block in training, returning its output and its BatchNorms'
+    batch statistics (the function a checkpoint recomputes)."""
+    stats = []
+    return block(x, True, stats), stats
 
 
 class ResNet(nn.Module):
@@ -83,9 +103,10 @@ class ResNet(nn.Module):
     float32 pooled features."""
 
     def __init__(self, stage_sizes: Sequence[int], block=BasicBlock, width: int = 64,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = Conv(3, width, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(width, _EPS)
         self.blocks = []
@@ -98,11 +119,20 @@ class ResNet(nn.Module):
                 self.blocks.append(name)
                 cin = width * 2**i * block.expansion
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x.to(self.dtype)), train, stats))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if train and self.remat:
+                # the blocks draw no random numbers: no RNG state to restore
+                x, block_stats = checkpoint(_block_in_training, block, x, use_reentrant=False,
+                                            preserve_rng_state=False)
+                if stats is not None:
+                    stats.extend(block_stats)
+            else:
+                x = block(x, train, stats)
         # the mean accumulates in float32 and is rounded to the compute type,
         # as jnp.mean does for bfloat16
         return x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).to(torch.float32)
@@ -112,5 +142,5 @@ def resnet18(dtype: torch.dtype = torch.bfloat16) -> ResNet:
     return ResNet(stage_sizes=(2, 2, 2, 2), block=BasicBlock, dtype=dtype)
 
 
-def resnet50(dtype: torch.dtype = torch.bfloat16) -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), block=Bottleneck, dtype=dtype)
+def resnet50(dtype: torch.dtype = torch.bfloat16, remat: bool = False) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block=Bottleneck, dtype=dtype, remat=remat)

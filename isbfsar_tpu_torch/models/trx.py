@@ -12,12 +12,15 @@ logits. All float32 (``ARConfig.compute_dtype``), the ResNet-50 included.
 
 ``forward`` is the whole episode the trainer and the evaluators run;
 ``support_kv`` and ``match_features`` are the streaming split the pipeline
-and the recognizer run, with the support K/V cached.
+and the recognizer run, with the support K/V cached. ``train`` and ``stats``
+reach the ResNet-50's BatchNorm only (``models/resnet.py``): the query's
+b·L frames are one BatchNorm batch and the support's b·way·L frames
+another, extracted in that order, as the JAX module does.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -57,13 +60,16 @@ class RGBExtractor(nn.Module):
     ReLU, Dense ``post``. ``ResNet_0`` is the name Flax gives the ResNet it
     builds inline, so the JAX parameter tree loads as it is."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
-        self.ResNet_0 = resnet50(dtype)
+        self.ResNet_0 = resnet50(dtype, remat)
         self.post = nn.Linear(2048, 256)
 
-    def forward(self, x):
-        return self.post(F.relu(self.ResNet_0(x.permute(0, 3, 1, 2))))
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
+        feats = F.relu(self.ResNet_0(x.permute(0, 3, 1, 2), train, stats))
+        # the pooled features are float32; Dense promotes them to its
+        # parameters' type, as Flax's does
+        return self.post(feats.to(self.post.weight.dtype))
 
 
 class Discriminator(nn.Module):
@@ -130,7 +136,7 @@ class TRXOS(nn.Module):
         if config.input_type in ("skeleton", "hybrid"):
             self.sk_extractor = SkeletonMLP(config.n_joints * 3, config.n_joints * 3 * 2, 256)
         if config.input_type in ("rgb", "hybrid"):
-            self.rgb_extractor = RGBExtractor(getattr(torch, config.compute_dtype))
+            self.rgb_extractor = RGBExtractor(getattr(torch, config.compute_dtype), config.remat)
         self.transformer = TemporalCrossTransformer(
             config.seq_len, config.trans_linear_in_dim, config.trans_linear_out_dim,
             config.temp_set[0], config.pe_scale_factor)
@@ -138,7 +144,7 @@ class TRXOS(nn.Module):
         if config.model == "DISC":
             self.discriminator = Discriminator(n_tuples, config.trans_linear_out_dim, config.seq_len)
 
-    def embed_frame(self, sk=None, rgb=None):
+    def embed_frame(self, sk=None, rgb=None, train: bool = False, stats: Optional[list] = None):
         """Per-frame features (..., trans_linear_in_dim) of root-relative
         skeletons ``sk`` (..., n_joints*3) and whitened NHWC crops ``rgb``
         (..., H, W, 3), the modalities of the input type; rgb first, as the
@@ -146,25 +152,28 @@ class TRXOS(nn.Module):
         feats = []
         if rgb is not None:
             lead = rgb.shape[:-3]
-            flat = self.rgb_extractor(rgb.reshape((-1,) + rgb.shape[-3:]))
+            flat = self.rgb_extractor(rgb.reshape((-1,) + rgb.shape[-3:]), train, stats)
             feats.append(flat.reshape(lead + (flat.shape[-1],)))
         if sk is not None:
             feats.append(self.sk_extractor(sk))
         return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
 
-    def extract_features(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def extract_features(self, data: Dict[str, torch.Tensor], train: bool = False,
+                         stats: Optional[list] = None) -> torch.Tensor:
         """{"sk": (..., L, n_joints*3)} and/or {"rgb": (..., L, H, W, 3)} ->
         (..., L, trans_linear_in_dim)."""
-        return self.embed_frame(sk=data.get("sk"), rgb=data.get("rgb"))
+        return self.embed_frame(sk=data.get("sk"), rgb=data.get("rgb"), train=train, stats=stats)
 
-    def forward(self, query_data, support_mask, support_data=None, support_features=None):
+    def forward(self, query_data, support_mask, support_data=None, support_features=None,
+                train: bool = False, stats: Optional[list] = None):
         """A whole episode: query clips {"sk": (b, L, 90)} and/or {"rgb":
         (b, L, H, W, 3)} against a support set given as clips (the same keys,
         (b, way, L, ...)) or as their features (b, way, L, D), exactly one
-        of the two."""
-        query_features = self.extract_features(query_data)
+        of the two. ``train`` normalizes with batch statistics, collected in
+        ``stats`` (query first, then support) where it is a list."""
+        query_features = self.extract_features(query_data, train, stats)
         if support_features is None:
-            support_features = self.extract_features(support_data)
+            support_features = self.extract_features(support_data, train, stats)
         return self.match_with_features(query_features, support_mask, support_features)
 
     def match_with_features(self, query_features, support_mask, support_features):

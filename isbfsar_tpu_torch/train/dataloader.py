@@ -1,5 +1,4 @@
-"""Episodic data pipeline (port of ``isbfsar_tpu/train/dataloader.py``,
-skeleton mode).
+"""Episodic data pipeline (port of ``isbfsar_tpu/train/dataloader.py``).
 
 - :class:`EpisodicSampler`: each item is a random k-way episode
   {support_set, target_set, unknown_set, support_classes, target_class,
@@ -12,7 +11,13 @@ skeleton mode).
   pool.
 
 The tree is ``root/<class>/<clip>/{i}.npy``, one (122, 3) float32
-root-relative pose per frame, as the reference's extraction writes it.
+root-relative pose per frame, and ``{i}.png`` for rgb and hybrid, the
+person's crop, as the reference's extraction writes it. A PNG is decoded
+by ``utils/png.py`` (cv2's ``imread`` in numpy), resized to 224x224 by
+``ops/image.py::resize_linear_u8`` (cv2's ``INTER_LINEAR``) and whitened in
+float64 with the ImageNet constants in BGR order, the reference's quirk;
+every ``max_l`` frame of a clip is decoded, though only every
+``max_l // l``-th is kept.
 
 Episode order: ``batch_iterator`` builds each batch with ``pool.map`` over
 ``num_threads`` threads, and every ``__getitem__`` draws from the sampler's
@@ -30,7 +35,15 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from isbfsar_tpu_torch.ops.image import IMAGENET_SCALE, IMAGENET_SHIFT, resize_linear_u8
+from isbfsar_tpu_torch.utils.png import read_png
 from isbfsar_tpu_torch.utils.skeleton import get_skeleton
+
+RGB_SIZE = 224
+# (u / 255.0) * scale + shift in float64 for every byte value u, per channel
+# (BGR order, the ImageNet constants as they are): the whitening looked up
+_WHITEN = (np.arange(256)[:, None] / 255.0 * np.array(IMAGENET_SCALE)
+           + np.array(IMAGENET_SHIFT)).T.copy()
 
 
 def list_classes(root: str) -> List[str]:
@@ -52,7 +65,15 @@ def _load_frame_pose(path: str, i: int) -> np.ndarray:
 
 
 def _load_frame_image(path: str, i: int) -> np.ndarray:
-    raise NotImplementedError("rgb clips need a PNG decoder and rgb training (ROADMAP A.12)")
+    """Frame ``i``'s crop, whitened, float64 (224, 224, 3); a missing frame
+    raises ``FileNotFoundError``."""
+    img = read_png(os.path.join(path, f"{i}.png"))
+    if img.shape[:2] != (RGB_SIZE, RGB_SIZE):  # cv2's resize to the same size copies
+        img = resize_linear_u8(img, RGB_SIZE, RGB_SIZE)
+    out = np.empty(img.shape, np.float64)
+    for c in range(3):
+        out[..., c] = _WHITEN[c][img[..., c]]
+    return out
 
 
 class EpisodicSampler:

@@ -20,14 +20,16 @@ import sys
 
 def _load_params(path: str):
     """The recognizer's Flax variables ``{"params": ...}`` from a trainer
-    checkpoint ({params, batch_stats, opt_state}) of either package."""
+    checkpoint ({params, batch_stats, opt_state}) of either package, with
+    ``"batch_stats"`` where it holds an rgb or hybrid model's BatchNorm
+    running averages."""
     from isbfsar_tpu_torch.utils.checkpoint import load_checkpoint
 
     state = load_checkpoint(path, {"params": None, "batch_stats": None, "opt_state": None})
+    variables = {"params": state["params"]}
     if state.get("batch_stats"):
-        raise SystemExit("[eval] the checkpoint holds batch statistics: an rgb/hybrid model "
-                         "(rgb/hybrid training and evaluation, ROADMAP A.12)")
-    return {"params": state["params"]}
+        variables["batch_stats"] = state["batch_stats"]
+    return variables
 
 
 def main(argv=None) -> int:
@@ -36,7 +38,8 @@ def main(argv=None) -> int:
     parser.add_argument("--data", required=True)
     parser.add_argument("--exemplars", default=None)
     parser.add_argument("--checkpoint", required=True)
-    parser.add_argument("--input-type", default="skeleton")
+    parser.add_argument("--input-type", default="skeleton",
+                        choices=["skeleton", "rgb", "hybrid"])
     parser.add_argument("--k", type=int, default=5)
     parser.add_argument("--repeats", type=int, default=10)
     parser.add_argument("--batch-size", type=int, default=8)
@@ -55,10 +58,6 @@ def main(argv=None) -> int:
     if args.plot:
         print("[eval] --plot needs matplotlib, which the port does not use (ROADMAP A.18)",
               file=sys.stderr)
-        return 2
-    if args.input_type != "skeleton":
-        print(f"[eval] --input-type {args.input_type}: the port evaluates skeleton mode only "
-              "(rgb/hybrid training and evaluation, ROADMAP A.12)", file=sys.stderr)
         return 2
     import torch
 

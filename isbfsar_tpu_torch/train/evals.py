@@ -31,12 +31,16 @@ from isbfsar_tpu_torch.weights import convert_variables
 
 def load_model(config: ARConfig, params: Mapping, device: str):
     """(TRXOS with ``params`` on ``device`` for inference, the device).
-    ``params``: Flax variables ``{"params": ...}`` or the bare tree."""
+    ``params``: Flax variables ``{"params": ...}``, with ``"batch_stats"``
+    for an rgb or hybrid model (its BatchNorm running averages), or the
+    bare parameter tree."""
     dev = float32_device(device)
     if "params" not in params:
         params = {"params": params}
     model = TRXOS(config)
-    model.load_state_dict(convert_variables({"params": params["params"]}), strict=True)
+    model.load_state_dict(convert_variables(
+        {"params": params["params"], "batch_stats": params.get("batch_stats") or {}}),
+        strict=True)
     return model.to(dev).eval(), dev
 
 

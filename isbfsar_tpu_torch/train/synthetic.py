@@ -3,8 +3,11 @@
 :func:`generate_dataset` writes the tree the reference's NTU-RGBD
 extraction writes, ``root/<class>/<clip>/{i}.npy`` with one (122, 3)
 float32 root-relative pose per frame, with a class-specific sinusoid on
-the joints so that training has signal to fit. The same seed writes the
-same files as the JAX package's generator.
+the joints so that training has signal to fit, and with ``with_images``
+an ``{i}.png`` crop per frame: a grey background of the class's level and a
+filled white circle that moves with the same sinusoid. The same seed
+writes the same ``.npy`` files and the same pixels as the JAX package's
+generator (which draws the circle with cv2 and writes with cv2).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from isbfsar_tpu_torch.utils.png import write_png
 
 MODALITY_KEYS = {"skeleton": ("sk",), "rgb": ("rgb",), "hybrid": ("rgb", "sk")}
 
@@ -28,9 +33,8 @@ def generate_dataset(
     seed: int = 0,
     class_names: Optional[list] = None,
 ) -> list:
-    """Create root/<class>/<clip>/{i}.npy. Returns the class names."""
-    if with_images:
-        raise NotImplementedError("rgb crops need a PNG encoder and rgb training (ROADMAP A.12)")
+    """Create root/<class>/<clip>/{i}.npy (and {i}.png with ``with_images``).
+    Returns the class names."""
     rng = np.random.default_rng(seed)
     names = class_names or [f"action_{c:02d}" for c in range(n_classes)]
     base_pose = rng.normal(0, 0.3, (n_joints, 3)).astype(np.float32)
@@ -49,7 +53,34 @@ def generate_dataset(
                     2 * np.pi * freq * t + phase
                 ) + noise[i]
                 np.save(os.path.join(clip_dir, f"{i}.npy"), pose.astype(np.float32))
+                if with_images:  # draws nothing from rng
+                    img = np.full((image_size, image_size, 3), 30 * (c + 1) % 255, np.uint8)
+                    cx = int((0.5 + 0.3 * np.sin(2 * np.pi * freq * t + phase)) * image_size)
+                    fill_circle(img, cx, image_size // 2, image_size // 8, 255)
+                    write_png(os.path.join(clip_dir, f"{i}.png"), img)
     return names
+
+
+def fill_circle(img: np.ndarray, cx: int, cy: int, radius: int, value: int) -> None:
+    """``cv2.circle(img, (cx, cy), radius, (value,) * 3, -1)`` (filled,
+    LINE_8, shift 0), pixel for pixel: cv2's midpoint walk from (radius, 0),
+    which fills the horizontal spans cx ± dx at rows cy ± dy and cx ± dy at
+    rows cy ± dx, each clipped to the image."""
+    h, w = img.shape[:2]
+    dx, dy, err, plus, minus = radius, 0, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for half, rows in ((dx, (cy - dy, cy + dy)), (dy, (cy - dx, cy + dx))):
+            x0, x1 = max(cx - half, 0), min(cx + half, w - 1)
+            for y in rows:
+                if 0 <= y < h and x0 <= x1:
+                    img[y, x0:x1 + 1] = value
+        dy += 1
+        err += plus
+        plus += 2
+        mask = -1 if err > 0 else 0  # (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
 
 
 def episodic_batch(cfg, batch_size: int, rgb_size: int, modality: str, seed: int = 0):

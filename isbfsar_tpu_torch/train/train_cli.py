@@ -7,13 +7,15 @@ the JAX package's ``assets/nturgbd_classes.txt`` ("A{n}. name." lines),
 read by path.
 
     python -m isbfsar_tpu_torch.train.train_cli --data <dataset_root> \\
-        [--epochs 100] [--batch-size 32] [--device cuda|cpu] [--resume CKPT]
+        [--input-type skeleton|rgb|hybrid] [--remat] [--epochs 100] [--batch-size 32] \\
+        [--device cuda|cpu] [--resume CKPT]
 
 ``--device`` defaults to ``cuda`` and fails without a card. ``--resume``
-takes a checkpoint of either package. The JAX package's ``fsdp``/``tp``
-sharding and ``--sp-degree`` (several devices, ROADMAP A.17), and ``--remat``
-and rgb/hybrid input (rgb/hybrid training, ROADMAP A.12) are not ported and
-exit with an error.
+takes a checkpoint of either package, with ``batch_stats`` in rgb and
+hybrid. ``--remat`` recomputes the rgb extractor per residual block in the
+backward pass. The JAX package's ``fsdp``/``tp`` sharding and
+``--sp-degree`` (several devices, ROADMAP A.17) are not ported and exit
+with an error.
 """
 
 from __future__ import annotations
@@ -55,15 +57,11 @@ def ntu_splits(all_classes: List[str]) -> Tuple[List[str], List[str], List[str]]
 
 def unported(args) -> str:
     """Why the options asked for cannot run in the port, or ''."""
-    if args.input_type != "skeleton":
-        return f"--input-type {args.input_type}: the port trains skeleton mode only (ROADMAP A.12)"
     if args.param_sharding != "replicated":
         return (f"--param-sharding {args.param_sharding}: the port trains on one device; "
                 "fsdp/tp become DDP/FSDP (ROADMAP A.17)")
     if args.sp_degree:
         return "--sp-degree: sequence parallelism is not ported (ROADMAP A.17)"
-    if args.remat:
-        return "--remat: rematerializes the rgb extractor in training, which is not ported (ROADMAP A.12)"
     return ""
 
 
@@ -84,7 +82,8 @@ def main(argv=None) -> int:
     parser.add_argument("--tp-degree", type=int, default=2,
                         help="tensor-parallel axis size under --param-sharding tp (not ported)")
     parser.add_argument("--remat", action="store_true",
-                        help="rgb-extractor rematerialization (not ported)")
+                        help="recompute the rgb extractor per residual block in the backward "
+                             "pass (less activation memory, one more forward)")
     parser.add_argument("--sp-degree", type=int, default=0,
                         help="sequence-parallel axis size (not ported)")
     parser.add_argument("--device", default="cuda",
@@ -112,6 +111,8 @@ def main(argv=None) -> int:
         overrides["batch_size"] = args.batch_size
     if args.n_task:
         overrides["n_task"] = args.n_task
+    if args.remat:
+        overrides["remat"] = True
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
 

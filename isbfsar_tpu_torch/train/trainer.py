@@ -1,5 +1,5 @@
 """Episodic trainer for the TRX-OS recognizer (port of
-``isbfsar_tpu/train/trainer.py``, skeleton mode, one device).
+``isbfsar_tpu/train/trainer.py``, all three input modes, one device).
 
 - loss = CE(few-shot logits) + BCE(discriminator, known episodes) +
   BCE(discriminator, unknown episodes). The discriminator trains only on
@@ -24,9 +24,15 @@
 
 One train step is one forward of the known episode, one of the unknown
 episode against the known one's support features, and one backward.
+In rgb and hybrid the ResNet-50's BatchNorm normalizes with batch
+statistics in both forwards; the running averages then move by the known
+episode's statistics (its query, then its support), and the unknown
+episode's are dropped, as the JAX step keeps only the known ``apply``'s
+``batch_stats``. Evaluation reads the running averages. ``cfg.remat``
+recomputes the ResNet-50 per residual block in the backward pass.
 Parameters, optimizer state and batches live on ``device``; on the card
-float32 matmuls stay float32 (no TF32). rgb/hybrid training (ROADMAP A.12),
-parameter sharding and sequence parallelism (ROADMAP A.17) are not ported.
+float32 matmuls stay float32 (no TF32). Parameter sharding and sequence
+parallelism (ROADMAP A.17) are not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from isbfsar_tpu_torch.configs import ARConfig
-from isbfsar_tpu_torch.models.layers import float32_device, init_random
+from isbfsar_tpu_torch.models.layers import float32_device, init_random, update_running_stats
 from isbfsar_tpu_torch.models.trx import TRXOS
 from isbfsar_tpu_torch.train.dataloader import batch_iterator
 from isbfsar_tpu_torch.utils import checkpoint as ckpt
@@ -55,13 +61,17 @@ def _bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss_fn(model: TRXOS, cfg: ARConfig):
-    """``loss_fn(batch, disc_on) -> (total, metrics)`` on a prepared batch
-    (tensors on the model's device); gradients flow into ``model``."""
+    """``loss_fn(batch, disc_on, train=True, stats=None) -> (total,
+    metrics)`` on a prepared batch (tensors on the model's device);
+    gradients flow into ``model``. ``train`` normalizes with batch
+    statistics (JAX's ``train``); the known episode's are appended to
+    ``stats`` if it is a list, the unknown episode's are not kept."""
 
-    def loss_fn(batch: Dict, disc_on: bool):
+    def loss_fn(batch: Dict, disc_on: bool, train: bool = True, stats: Optional[list] = None):
         b = batch["target_class"].shape[0]
         mask = torch.ones((b, cfg.way), dtype=torch.bool, device=batch["target_class"].device)
-        out = model(batch["target_set"], mask, support_data=batch["support_set"])
+        out = model(batch["target_set"], mask, support_data=batch["support_set"], train=train,
+                    stats=stats)
         logits = out["logits"]
         target = (batch["support_classes"] == batch["target_class"][:, None]).to(torch.float32)
 
@@ -75,7 +85,8 @@ def make_loss_fn(model: TRXOS, cfg: ARConfig):
             n = torch.clamp(w.sum(), min=1.0)
             known_pred = out["is_true"][:, 0]
             known_os = torch.sum(_bce(known_pred, torch.ones_like(known_pred)) * w) / n
-            out_u = model(batch["unknown_set"], mask, support_features=out["support_features"])
+            out_u = model(batch["unknown_set"], mask, support_features=out["support_features"],
+                          train=train)
             unk_pred = out_u["is_true"][:, 0]
             unknown_os = torch.sum(_bce(unk_pred, torch.zeros_like(unk_pred)) * w) / n
 
@@ -124,10 +135,6 @@ class Trainer:
         if seq_axis is not None:
             raise NotImplementedError(
                 "seq_axis: sequence parallelism is not ported (DDP/FSDP, ROADMAP A.17)")
-        if config.input_type != "skeleton":
-            raise NotImplementedError(
-                f"input_type={config.input_type!r}: the port trains skeleton mode only "
-                "(rgb/hybrid training, ROADMAP A.12)")
         self.cfg = config
         self.device = float32_device(device)
         self.train_sampler = train_sampler
@@ -159,9 +166,11 @@ class Trainer:
     # ------------------------------------------------------------- the step
 
     def _train_step(self, batch: Dict, disc_on: bool) -> Dict:
-        total, metrics = self.loss_fn(batch, disc_on)
+        stats: list = []
+        total, metrics = self.loss_fn(batch, disc_on, stats=stats)
         # the discriminator is unused before it trains: its gradient is zero, as in JAX
         grads = torch.autograd.grad(total, self.leaves, allow_unused=True, materialize_grads=True)
+        update_running_stats(stats)
         with torch.no_grad():
             for acc, g in zip(self.acc_grads, grads):
                 acc.add_((g - acc) / (self.mini_step + 1))
@@ -184,7 +193,7 @@ class Trainer:
 
     def _eval_step(self, batch: Dict, disc_on: bool) -> Dict:
         with torch.no_grad():
-            return self.loss_fn(batch, disc_on)[1]
+            return self.loss_fn(batch, disc_on, train=False)[1]
 
     # ----------------------------------------------------------------- loop
 
@@ -244,6 +253,12 @@ class Trainer:
         """The parameters as the JAX trainer's Flax tree (CPU tensors)."""
         return to_flax_variables(self.model.state_dict())["params"]
 
+    @property
+    def batch_stats(self) -> Dict:
+        """The rgb extractor's BatchNorm running averages as the JAX
+        trainer's Flax tree (CPU tensors); empty in skeleton mode."""
+        return to_flax_variables(self.model.state_dict()).get("batch_stats", {})
+
     def state(self) -> Dict:
         """``{params, batch_stats, opt_state}`` as the JAX trainer writes it:
         optax.MultiSteps' state around sgd's (EmptyState, schedule count),
@@ -254,9 +269,10 @@ class Trainer:
         def i32(v):
             return torch.tensor(v, dtype=torch.int32)
 
+        variables = to_flax_variables(self.model.state_dict())
         return {
-            "params": self.params,
-            "batch_stats": {},
+            "params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {}),
             "opt_state": {
                 "mini_step": i32(self.mini_step),
                 "gradient_step": i32(self.gradient_step),
@@ -269,10 +285,8 @@ class Trainer:
     def load_state(self, state: Dict) -> None:
         """Adopt a checkpoint tree of either package ({params, batch_stats,
         opt_state}), onto this trainer's device."""
-        if state.get("batch_stats"):
-            raise ValueError("a checkpoint with batch statistics is an rgb/hybrid one "
-                             "(rgb/hybrid training, ROADMAP A.12)")
-        sd = convert_variables({"params": state["params"]})
+        sd = convert_variables({"params": state["params"],
+                                "batch_stats": state.get("batch_stats") or {}})
         self.model.load_state_dict(sd, strict=True)
         opt = state["opt_state"]
         acc = convert_variables({"params": opt["acc_grads"]})

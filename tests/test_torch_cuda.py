@@ -486,3 +486,35 @@ def test_evaluate_fsos_on_card_matches_cpu(train_tree, tmp_path):
     calib = [calibrate_os_threshold(cfg, params, train_tree, n_repeats=2, device=d)
              for d in ("cuda", "cpu")]
     assert calib[0] == calib[1]
+
+
+@pytest.mark.parametrize("mode", ["rgb", "hybrid"])
+def test_rgb_train_steps_on_card_match_cpu(cuda, tmp_path, mode):
+    """chip_smoke phase 9a: three train steps at the CI size (a 32 crop,
+    batch 2), each from the card's state, on the card and on the CPU:
+    fs_correct and the gate equal, the losses, parameters and running stats
+    within chip_smoke.TOL_TRAIN_RGB."""
+    from chip_smoke import TOL_TRAIN_RGB, check_rgb_train_small
+
+    err = check_rgb_train_small(mode, str(tmp_path))
+    print(f"{mode}, card vs CPU: {err}")
+    for k, v in err.items():
+        assert v <= TOL_TRAIN_RGB[k], (k, v)
+
+
+@pytest.mark.parametrize("mode", ["rgb", "hybrid"])
+def test_remat_cuts_the_train_steps_peak_memory(cuda, tmp_path, mode):
+    """One train step with remat against one without (a 112 crop, batch 2,
+    one init and batch, cuDNN deterministic): the peak memory drops to
+    chip_smoke.REMAT_PEAK_RATIO or less, and the parameters and running
+    stats after the step agree within chip_smoke.TOL_REMAT."""
+    from chip_smoke import REMAT_PEAK_RATIO, TOL_REMAT, remat_pair
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.train.synthetic import episodic_batch
+
+    cfg = ARConfig.for_input(mode, rgb_size=112, batch_size=2)
+    _, peak, err, losses = remat_pair(cfg, episodic_batch(cfg, 2, 112, mode), str(tmp_path))
+    print(f"{mode}: peak {peak}, remat vs not {err}, losses {losses}")
+    assert peak[True] <= REMAT_PEAK_RATIO * peak[False], peak
+    for k, v in err.items():
+        assert v <= TOL_REMAT[k], (k, v)

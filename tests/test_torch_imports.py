@@ -9,7 +9,9 @@ the orchestrator's fused and module paths for a frame each, and a
 multi-stream step; an rgb and a hybrid step, each with the module path's
 host crop; then the recognizer's training and evaluation: a
 training epoch of 2 steps on a synthetic tree, a checkpoint written and
-read back, and one FSOS repeat."""
+read back, and one FSOS repeat; then rgb training: a train step with remat
+at a 32 crop, a PNG round trip, and a synthetic tree with PNG crops whose
+clip the rgb loader reads."""
 
 import os
 import subprocess
@@ -124,6 +126,22 @@ SCRIPT = textwrap.dedent(r"""
         res = evaluate_fsos(ar_cfg, trainer.params, tmp + "/tree", tmp + "/tree", n_repeats=1,
                             device="cpu")
         assert len(res["FSOS-ACC"]) == 1
+
+        # rgb training with remat; the PNG codec and the rgb loader without cv2
+        from isbfsar_tpu_torch.train.synthetic import episodic_batch
+        from isbfsar_tpu_torch.utils import png
+        rgb_cfg = ARConfig.for_input("rgb", rgb_size=32, batch_size=2, remat=True)
+        trainer = Trainer(rgb_cfg, log_dir=tmp + "/rgb_log", device="cpu")
+        metrics = trainer.step(episodic_batch(rgb_cfg, 2, 32, "rgb"))
+        assert np.isfinite(float(metrics["fs_loss"])) and trainer.state()["batch_stats"]
+        img = np.random.default_rng(2).integers(0, 256, (20, 30, 3), np.uint8)
+        png.write_png(tmp + "/img.png", img)
+        assert np.array_equal(png.read_png(tmp + "/img.png"), img)
+        generate_dataset(tmp + "/rgb_tree", n_classes=2, clips_per_class=1, with_images=True,
+                         image_size=32)
+        clip = EpisodicSampler(tmp + "/rgb_tree", l=8, input_type="hybrid").load_clip(
+            tmp + "/rgb_tree/action_00/0")
+        assert clip["rgb"].shape == (8, 224, 224, 3) and clip["sk"].shape == (8, 90)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
