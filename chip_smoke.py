@@ -113,11 +113,36 @@ Phases, each timed; any failure exits non-zero and prints no result:
    its checkpoint, which must hold the ResNet-50's running stats, as
    subprocesses beside (a). Neither kernel is on this path: both counts
    must stay 0.
+10. the estimator's other options and the synthetic humanoid: (a) a
+   rendered ``wave`` clip (the port's renderer, numpy, no cv2) at the CI
+   size through the module-path estimator on ``pose-ci-motions`` in
+   float32 at num_aug 0, 4 ("aug0") and 5 ("mean"), card against CPU
+   (``TOL_TTA_CI``; boxes, found and visible equal; a frame must fire at
+   0.3), and ``postprocess_yolo`` at ``HPEConfig``'s NMS threshold and
+   max_det 64 on the card's YOLO outputs, card against CPU exactly, with
+   its time and the kernel nodes of one call's CUDA graph; (b) 32
+   frames of ``HumanoidSource(640, 480)`` (bench.py's headline wave
+   traffic) as I420 through ``build_slice`` with num_aug=5 ("mean"), focus
+   on, bf16 at full width: ``step`` on 16 frames and ``stream_batched`` on
+   64 at B=16 with CUDA graphs, equal to the eager oracle, batched within
+   ``TOL_BATCHED_TTA`` of per-frame (the detector's box and conf equal to
+   num_aug=0's at each batch size, and num_aug=0's held to the same box
+   limit), a frame firing at 0.3, each kernel once a dispatch; the ``step`` p50 beside num_aug=0's on the same nets and
+   frames, frames/s, device ms and kernels a frame; (c) the offline
+   workflow (render, extract with 122 joints at the 0.3 gate, train,
+   FSOS) at CI size on ``pose-diverse-256``, cut as ``WORKFLOW_KW`` says,
+   with its stage walls and receipt, and one clip's extraction card
+   against CPU in float32 (``TOL_EXTRACT``). Neither kernel runs in (a)
+   and (c): both counts must stay 0 there.
 
-The three weight files are required: a missing one fails the run.
+The four weight files are required (``pose-ci-motions``, ``focus-ci``, the
+``pose-prod-256-calib`` delta and ``pose-diverse-256``): a missing one
+fails the run.
 
-The last three lines are the card's ``nvidia-smi`` name and power limit,
-the ``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
+The ``[phases]`` line gives each phase's seconds, and the ``kernels``
+line each kernel's launches by path, the paths of phase 10 included. The
+last three lines are the card's ``nvidia-smi`` name and power limit, the
+``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -272,6 +297,45 @@ REMAT_PEAK_RATIO = 0.7  # remat's peak memory at most this share of the peak wit
 # same kernels on the same values: an H100 read 0 in both modes at 224 and
 # at 112, so they must be bit-equal.
 TOL_REMAT = {"params": 0.0, "batch_stats": 0.0}
+# Phase 10, the estimator's other options on rendered humanoids. (a) The
+# module-path estimator at the CI size (pose-ci-motions, float32) on the
+# card against the CPU, at num_aug 0, 4 ("aug0") and 5 ("mean"): the
+# homographies and crops are bit-equal on both (ops/geometry.py), so what
+# is left are the float32 convolutions' summation orders: an H100 read
+# 2.98e-7 m, 4.17e-7 m and 2.98e-7 m in pose and 0 in conf at the three
+# settings. The limits are about five times that; boxes, found and
+# visible must be equal.
+TTA_MODES = ((0, "mean"), (4, "aug0"), (5, "mean"))
+TOL_TTA_CI = {"pose": 2e-6, "conf": 5e-7}
+TTA_CI_FRAMES = 8
+# (b) Full width: num_aug=5 "mean" through build_slice with focus, on the
+# HumanoidSource stream's wave clip (bench.py's headline traffic): 16 step
+# frames, 64 stream_batched frames at B=16.
+TTA_FULL = {"num_aug": 5, "tta_aggregate": "mean"}
+TTA_STEPS, TTA_BATCHED = 16, 64
+# stream_batched (B=16) against step (B=1) there: as TOL_BATCHED, but on
+# these frames cuDNN's bf16 YOLO regresses a box edge 2 px apart at B=16
+# and at B=1 (an H100 read 2 px at num_aug=5 and at num_aug=0; conf
+# equal), and the crop, and so the pose, follow the box. The head's raw
+# outputs are bf16 and a box's width and height are exp of two of them, so
+# one bf16 place of such a logit (2^-8 to 2^-7 of it for logits in [0.5,
+# 2)) moves an edge by that share of half the box: 0.6-1.2 px on a 300 px
+# box, and 4 px is a few places. The smoke holds the cause too: the
+# detector's box and conf equal num_aug=0's exactly at each batch size
+# (TTA starts after the box), and num_aug=0's box and conf are held to the
+# same limit between B=16 and B=1.
+TOL_BATCHED_TTA = {**TOL_BATCHED, "bbox": 4.0}
+# (c) The offline workflow at CI size on pose-diverse-256, cut from the
+# tool's defaults (6 clips a class, 2 exemplar clips, 25 epochs of 160
+# tasks, 5 FSOS repeats) to fit the run: 2 clips a class, 1 exemplar clip,
+# 2 epochs of 16 tasks, 1 repeat. One clip's extraction on the card
+# against the CPU in float32 (the workflow runs bf16, as JAX's does): the
+# estimator's poses as in (a), smoothed on the host in float64; an H100
+# read 1.94e-7 m, the limit is about five times that.
+# On an H100 phase 10 read 45.7-48.2 s, the workflow 24.1-34.9 s of it
+# (its host render and eager extraction), against a 45 s aim.
+WORKFLOW_KW = dict(clips_per_class=2, exemplar_clips=1, n_epochs=2, n_task=16, fsos_repeats=1)
+TOL_EXTRACT = 1e-6
 EXACT = ("pose_ok", "ar_ready", "f_found")
 KERNELS = (fused_input.fused_i420_inputs, head_pose.focus_geometry)
 
@@ -1429,6 +1493,238 @@ def run_rgb_train(card: str) -> dict:
     return counts
 
 
+def tta_estimators(params, device: str, num_aug: int, aggregate: str):
+    """The module-path estimator at the CI operating point with TTA."""
+    from isbfsar_tpu_torch.configs import HPEConfig
+    from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
+    from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
+    from isbfsar_tpu_torch.train.posestack import CI_FRAME_HW, CI_INTRINSICS
+
+    cfg = HPEConfig(yolo_input_size=128, crop_size=128, yolo_thresh=0.3, compute_dtype="float32",
+                    num_aug=num_aug, tta_aggregate=aggregate)
+    return HumanPoseEstimator(cfg, CI_INTRINSICS, params=params, backbone_stages=V2_TINY,
+                              frame_shape=CI_FRAME_HW, yolo_width=0.25, device=device)
+
+
+def run_tta_small(card: str) -> dict:
+    """Phase 10a: the module-path estimator with TTA at the CI size on the
+    card against the CPU, and the full YOLO postprocessing on the same
+    YOLO outputs; returns both kernels' launches (none are on this path)."""
+    from isbfsar_tpu_torch.ops.nms import postprocess_yolo
+    from isbfsar_tpu_torch.train.posestack import CI_FRAME_HW, CI_INTRINSICS, render_motion_clip
+
+    params = weights.load_bundle("pose-ci-motions")
+    clip, _ = render_motion_clip("wave", n_frames=TTA_CI_FRAMES, frame_hw=CI_FRAME_HW,
+                                 intrinsics=CI_INTRINSICS, cycles=2.0)
+    batch = torch.from_numpy(np.stack(clip).astype(np.float32))
+    zero_launches()
+    yolo = None
+    for num_aug, aggregate in TTA_MODES:
+        outs = {}
+        for device in ("cuda", "cpu"):
+            est = tta_estimators(params, device, num_aug, aggregate)
+            stages = {}
+            with torch.inference_mode():
+                out = est._estimate_impl(est.nets, batch.to(device), stages=stages)
+            outs[device] = [t.cpu().numpy() for t in out]
+            if device == "cuda" and yolo is None:
+                yolo = (stages["yolo_boxes"], stages["yolo_confs"])
+        (pose, bbox, conf, found, vis), (cpose, cbbox, cconf, cfound, cvis) = outs["cuda"], outs["cpu"]
+        err = {"pose": float(np.abs(pose - cpose).max()), "conf": float(np.abs(conf - cconf).max())}
+        fired = int(found.sum())
+        log(f"[tta small] num_aug={num_aug} {aggregate}: {TTA_CI_FRAMES} rendered wave frames "
+            f"{CI_FRAME_HW}, pose-ci-motions float32, {fired} fired at 0.3, {int(vis.sum())} "
+            f"visible; card vs CPU max|diff| pose {err['pose']:.3g} m, conf {err['conf']:.3g} "
+            f"(limits {TOL_TTA_CI})")
+        if fired == 0:
+            raise AssertionError(f"num_aug={num_aug}: no frame fired at 0.3")
+        if not (np.array_equal(bbox, cbbox) and np.array_equal(found, cfound)
+                and np.array_equal(vis, cvis)):
+            raise AssertionError(f"num_aug={num_aug}: bbox, found or visible differ card vs CPU")
+        over = [f"{k} {v} > {TOL_TTA_CI[k]}" for k, v in err.items() if not v <= TOL_TTA_CI[k]]
+        if over:
+            raise AssertionError(f"num_aug={num_aug} card vs CPU: " + "; ".join(over))
+    # the full postprocessing on the card's YOLO outputs, on the card and on
+    # the CPU, at the estimator's HPEConfig thresholds and capacity
+    boxes, confs, cfg = *yolo, est.config
+    post = lambda b, c: postprocess_yolo(b, c, cfg.yolo_thresh, cfg.nms_thresh, cfg.max_detections)
+    dets, keep = post(boxes, confs)
+    cdets, ckeep = post(boxes.cpu(), confs.cpu())
+    if not (torch.equal(keep.cpu(), ckeep) and torch.equal(dets.cpu(), cdets)):
+        raise AssertionError("postprocess_yolo: keep or detections differ card vs CPU")
+    call = lambda: post(boxes, confs)
+    ms, device_ms = loop_ms(call, reps=10), graph_ms(call, reps=4)
+    nodes = graph_nodes(call)
+    log(f"[tta small] postprocess_yolo B={boxes.shape[0]} x {confs.shape[1]} anchors, "
+        f"max_det={cfg.max_detections}: {int(keep.sum())} kept of "
+        f"{int((dets[..., 4] > 0).sum())} candidates, equal card vs CPU; {ms:.3f} ms a call "
+        f"(CUDA events around a host loop: {cfg.max_detections} sequential NMS steps of device "
+        f"ops, no sync), {device_ms:.3f} ms a call on the device (a CUDA graph of the calls); "
+        f"one call's CUDA graph holds {nodes}; {card}")
+    counts = launches()
+    check_launches("tta small (module path, BGR)", counts, 0)
+    return counts
+
+
+def graph_nodes(fn) -> dict:
+    """What one call of ``fn`` puts on the card, by kind: the nodes of a
+    CUDA graph captured from that call, read with the CUDA driver's
+    cuGraphGetNodes and cuGraphNodeGetType (the same every call, where
+    torch.profiler's tally of device events is not)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds, counts = {0: "kernel", 1: "memcpy", 2: "memset"}, {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        if driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = kinds.get(kind.value, f"type {kind.value}")
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def run_tta_slice(card: str) -> dict:
+    """Phase 10b: num_aug=5 "mean" at full width with focus, on the
+    HumanoidSource wave clip as I420, through step and stream_batched with
+    CUDA graphs against the eager oracle; the num_aug=0 step p50 beside it
+    on the same nets and frames. Returns the kernels' launches."""
+    import copy
+    import dataclasses
+
+    from isbfsar_tpu_torch.pipeline import FusedPipeline
+    from isbfsar_tpu_torch.runtime.source import HumanoidSource
+
+    t0 = time.perf_counter()
+    source = HumanoidSource(640, 480)
+    clip = [bgr_to_i420(source.read()[1]) for _ in range(32)]
+    rendered = time.perf_counter() - t0
+    pipe = build_slice(seed=0, cuda_graphs=True, hpe_overrides=TTA_FULL)
+    eager = twin(pipe, cuda_graphs=False)
+    # the same nets, support set and focus without TTA
+    hpe0 = copy.copy(pipe.hpe)
+    hpe0.config, hpe0._tta = dataclasses.replace(pipe.hpe.config, num_aug=0), None
+    base = FusedPipeline(dataclasses.replace(pipe.config, hpe=hpe0.config), hpe=hpe0, ar=pipe.ar,
+                         focus=pipe.focus, device=str(pipe.device), cuda_graphs=True)
+    base.start()
+    frames = [clip[i % len(clip)] for i in range(TTA_BATCHED)]
+    built = time.perf_counter() - t0 - rendered
+    for p in (pipe, eager, base):
+        warm(p, frames)
+    log(f"[tta slice] HumanoidSource(640, 480) wave clip rendered in {rendered:.1f} s; num_aug=5 "
+        f"mean slice built in {built:.1f} s, warmed and captured at B={sorted(pipe._graphs)} in "
+        f"{time.perf_counter() - t0 - rendered - built:.1f} s")
+    zero_launches()
+    seq, batched, lat, t_batched = drive(pipe, frames[:TTA_STEPS], frames, 16)
+    counts = launches()
+    eager_seq, eager_batched, _, _ = drive(eager, frames[:TTA_STEPS], frames, 16)
+    base_seq, base_batched, base_lat, t_base = drive(base, frames[:TTA_STEPS], frames, 16)
+    check_launches("tta slice", counts, dispatches(TTA_STEPS, TTA_BATCHED, 16))
+    for out in seq + batched:
+        for key, v in out.items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"non-finite {key!r} in the TTA slice's output")
+    fired = sum(int(o["conf"] > 0) for o in seq)
+    log(f"[tta slice] {fired}/{TTA_STEPS} frames fired at the 0.3 gate, "
+        f"{sum(int(o['pose_ok'] > 0) for o in seq)} with a visible pose, a face on "
+        f"{sum(int(o['f_found'] > 0) for o in seq)}")
+    if fired == 0:
+        raise AssertionError("the TTA slice fired on no frame")
+    check_close("tta slice num_aug=0: stream_batched vs step", base_batched[:TTA_STEPS],
+                base_seq, None)
+    # the batch-size difference is the detector's (TOL_BATCHED_TTA)
+    detector = lambda outs: [{k: o[k] for k in ("bbox", "conf")} for o in outs]
+    check_close("tta slice num_aug=0: stream_batched vs step, the detector",
+                detector(base_batched[:TTA_STEPS]), detector(base_seq), TOL_BATCHED_TTA)
+    for what, got, want in (("step", seq, base_seq), ("stream_batched", batched, base_batched)):
+        check_close(f"tta slice: num_aug=5 vs num_aug=0, the detector, {what}", detector(got),
+                    detector(want), {"bbox": 0.0, "conf": 0.0})
+    check_close("tta slice: stream_batched vs step", batched[:TTA_STEPS], seq, TOL_BATCHED_TTA)
+    check_close("tta slice: CUDA graphs vs eager, step", seq, eager_seq, TOL_GRAPH)
+    check_close("tta slice: CUDA graphs vs eager, stream_batched", batched, eager_batched,
+                TOL_GRAPH)
+    on = profile_steps("tta slice num_aug=5", pipe, frames, 4, top=0)
+    off = profile_steps("tta slice num_aug=0", base, frames, 4, top=0)
+    log(f"[tta slice] step p50 {p50_ms(lat):.2f} ms (min {min(lat) * 1e3:.2f} ms) with num_aug=5 "
+        f"against {p50_ms(base_lat):.2f} ms with num_aug=0 on the same {TTA_STEPS} frames, CUDA "
+        f"graphs and focus, no limit; stream_batched B=16 {TTA_BATCHED / t_batched:.1f} FPS "
+        f"(num_aug=0 {TTA_BATCHED / t_base:.1f} FPS) over {TTA_BATCHED} frames; device "
+        f"{on[0]:.3f} ms and {on[1]:.0f} kernels per frame at B=1 (num_aug=0 {off[0]:.3f} ms, "
+        f"{off[1]:.0f}; torch.profiler); launches {counts}; {card}")
+    return counts
+
+
+def run_tta_workflow(card: str) -> dict:
+    """Phase 10c: the offline workflow at CI size (WORKFLOW_KW) on the card,
+    and one clip's extraction card against CPU; returns the launches."""
+    import dataclasses
+
+    from isbfsar_tpu_torch.configs import HPEConfig
+    from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
+    from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
+    from isbfsar_tpu_torch.tools.extract_dataset import extract_clip, load_clip_frames
+    from isbfsar_tpu_torch.tools.synth_workflow import run_workflow
+    from isbfsar_tpu_torch.train.posestack import CI_FRAME_HW, CI_INTRINSICS
+
+    params = weights.load_bundle("pose-diverse-256")
+    root = tempfile.mkdtemp(prefix="synthwf_")
+    try:
+        zero_launches()
+        receipt = run_workflow(params, root, CI_FRAME_HW, CI_INTRINSICS, device="cuda",
+                               **WORKFLOW_KW)
+        counts = launches()
+        log(f"[workflow] stage walls (s): {receipt['wall_s']}; receipt {json.dumps(receipt)}")
+        # one clip's extraction, card against CPU, in float32
+        cfg = HPEConfig(yolo_input_size=128, crop_size=256, yolo_thresh=0.3, skeleton=None,
+                        compute_dtype="float32")
+        frames = load_clip_frames(os.path.join(root, "videos_train", "wave", "0"))
+        poses = {}
+        for device in ("cuda", "cpu"):
+            est = HumanPoseEstimator(cfg, CI_INTRINSICS, params=params, backbone_stages=V2_TINY,
+                                     frame_shape=CI_FRAME_HW, yolo_width=0.25, device=device)
+            res = extract_clip(est, frames, 16, with_images=False, smooth=True)
+            poses[device] = None if res is None else np.stack(res[0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if poses["cuda"] is None or poses["cpu"] is None:
+        raise AssertionError(f"extraction skipped the clip: card {poses['cuda'] is None}, "
+                             f"CPU {poses['cpu'] is None}")
+    err = float(np.abs(poses["cuda"] - poses["cpu"]).max())
+    log(f"[workflow] videos_train/wave/0 extracted (16 frames, 122 joints, smoothed) card vs CPU "
+        f"in float32: max|diff| {err:.3g} m (limit {TOL_EXTRACT}); launches {counts}; {card}")
+    if not err <= TOL_EXTRACT:
+        raise AssertionError(f"extraction card vs CPU {err} > {TOL_EXTRACT}")
+    if receipt["train_classes"] != 8 or set(receipt["fsos"]) != {"FSOS-ACC", "FS-ACC", "OS-ACC"}:
+        raise AssertionError(f"workflow receipt {receipt}")
+    check_launches("workflow", counts, 0)
+    return counts
+
+
+def run_tta(card: str) -> dict:
+    """Phase 10: the estimator's other options and the synthetic humanoid;
+    returns each path's kernel launches."""
+    by_path = {}
+    for name, fn in (("TTA module path and postprocess_yolo, CI size", run_tta_small),
+                     ("TTA num_aug=5 FusedPipeline step and stream_batched", run_tta_slice),
+                     ("offline workflow (render, extract, train, FSOS), CI size",
+                      run_tta_workflow)):
+        t = time.perf_counter()
+        by_path[name] = fn(card)
+        log(f"[tta] {name} in {time.perf_counter() - t:.1f} s")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -1476,6 +1772,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path["rgb and hybrid Trainer.step, train_cli, eval_cli"] = run_rgb_train(card)
     phases["rgb_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path.update(run_tta(card))
+    phases["tta"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

@@ -69,11 +69,18 @@ class CameraIntrinsics:
 
 @dataclasses.dataclass(frozen=True)
 class HPEConfig:
-    skeleton: str = DEFAULT_SKELETON
+    # None: the full 122-joint pose (the offline extraction stores it)
+    skeleton: Optional[str] = DEFAULT_SKELETON
     yolo_thresh: float = 0.3
+    nms_thresh: float = 0.7
+    num_aug: int = 0  # test-time augmentations; 0 disables
+    # "mean": the visibility-weighted mean over the unflipped augmentations;
+    # "aug0": the reference's pick of augmentation 0
+    tta_aggregate: str = "mean"
     just_box: bool = False  # rgb mode: only the person box is needed
     yolo_input_size: int = 256
     crop_size: int = 256
+    max_detections: int = 64  # ops/nms.py::postprocess_yolo's capacity
     expand_joints_path: str = os.path.join(ASSETS_DIR, "joints_32_to_122.npy")
     skeletons_path: str = os.path.join(ASSETS_DIR, "skeletons.npz")
     compute_dtype: str = "bfloat16"

@@ -10,11 +10,17 @@ float64, where the product of two float32 values is exact, with one
 rounding back to float32. Every op is elementwise, so the result is the
 same on the CPU and on the card and does not depend on the batch size,
 which a cuBLAS or MKL product does not promise. Batched over a leading
-frame axis.
+frame axis. The test-time augmentation's rotations are host numpy
+(``tta_params``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
+import numpy as np
 import torch
 
 
@@ -129,3 +135,46 @@ def virtual_camera(x1, x2, y1, y2, intrinsics: torch.Tensor, out_dim: int):
 def warp_matrix(intrinsics: torch.Tensor, new_k: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     """Full-frame -> crop homography ``K @ Rᵀ @ inv(new_K)``: (b, 3, 3)."""
     return mm(mm(intrinsics, rot.transpose(-1, -2)), inv_intrinsics(new_k))
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    """The C library's math functions: XLA's CPU float32 ``sin`` and ``cos``
+    give what ``sinf`` and ``cosf`` give, bit for bit, where numpy's and
+    torch's float32 versions differ from them in the last place."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        getattr(lib, name).restype = ctypes.c_float
+        getattr(lib, name).argtypes = [ctypes.c_float]
+    return lib
+
+
+def rotation_z(angle: np.ndarray) -> np.ndarray:
+    """(n,) float32 angles -> (n, 3, 3) float32 rotations about the z axis,
+    with the sines and cosines XLA computes for them on the CPU."""
+    angle = np.asarray(angle, np.float32).reshape(-1)
+    lib = _libm()
+    sin = np.array([lib.sinf(float(a)) for a in angle], np.float32)
+    cos = np.array([lib.cosf(float(a)) for a in angle], np.float32)
+    zero, one = np.zeros_like(angle), np.ones_like(angle)
+    return np.stack([np.stack([cos, -sin, zero], -1), np.stack([sin, cos, zero], -1),
+                     np.stack([zero, zero, one], -1)], axis=-2)
+
+
+def tta_params(num_aug: int):
+    """Test-time augmentation parameters, host numpy: (should_flip (A,) bool,
+    rotflip (A, 3, 3) float32, scales). As in the JAX package: aug i is
+    flipped where (i - A//2) is odd, the angles leave out the linspace's
+    end point, and the scales come out one short for an even A (the
+    estimator pads them with the last)."""
+    angle_range = np.float32(np.deg2rad(25))
+    angles = np.linspace(-angle_range, angle_range, num_aug + 1)[:-1]
+    scales = np.concatenate([
+        np.linspace(0.8, 1.0, (num_aug + 1) // 2)[:-1],
+        np.linspace(1.0, 1.1, num_aug - num_aug // 2),
+    ], axis=0)
+    should_flip = (np.arange(num_aug) - num_aug // 2) % 2 != 0
+    flipmat = np.array([[-1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
+    maybe_flip = np.where(should_flip[:, None, None], flipmat, np.eye(3, dtype=np.float32))
+    rotflip = maybe_flip @ rotation_z(-angles)
+    return should_flip, rotflip.astype(np.float32), scales

@@ -1,5 +1,7 @@
-"""Causal One-Euro pose smoothing, gated (port of the live-pipeline half of
-``isbfsar_tpu/ops/smooth.py``: ``one_euro_gated_state`` / ``_step``).
+"""Causal One-Euro pose smoothing (port of ``isbfsar_tpu/ops/smooth.py``):
+the gated per-step filter of the live pipeline (``one_euro_gated_state`` /
+``_step``, torch) and the offline whole-sequence filter the dataset
+extraction runs (``one_euro``, numpy).
 
     alpha(fc) = 1 / (1 + fs / (2*pi*fc))
     dx_hat    = EMA(dx, alpha(d_cutoff))
@@ -16,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 
 MIN_CUTOFF = 0.05
@@ -23,7 +26,7 @@ BETA = 2.0
 D_CUTOFF = 0.3
 
 
-def _alpha(cutoff: float, fs: float) -> float:
+def _alpha(cutoff, fs: float):
     tau = 1.0 / (2.0 * math.pi * cutoff)
     te = 1.0 / fs
     return 1.0 / (1.0 + tau / te)
@@ -70,3 +73,24 @@ def one_euro_gated_step(state, x, ok, **kw):
         "init": state["init"] | ok,
     }
     return out_state, torch.where(gate, x_hat, x)
+
+
+def one_euro(xs: np.ndarray, min_cutoff: float = MIN_CUTOFF, beta: float = BETA,
+             d_cutoff: float = D_CUTOFF, fs: float = 1.0) -> np.ndarray:
+    """Filter a whole sequence, xs (T, ...) of any trailing shape: float64
+    state, float32 output; the first sample passes through unchanged (the
+    filter state starts on it). Causal: output t depends on inputs <= t."""
+    xs = np.asarray(xs, np.float32)
+    out = np.empty_like(xs)
+    out[0] = xs[0]
+    x_hat = xs[0].astype(np.float64)
+    dx_hat = np.zeros_like(x_hat)
+    a_d = _alpha(d_cutoff, fs)
+    for t in range(1, xs.shape[0]):
+        dx = (xs[t] - x_hat) * fs
+        dx_hat = a_d * dx + (1.0 - a_d) * dx_hat
+        fc = min_cutoff + beta * np.abs(dx_hat)
+        a = _alpha(fc, fs)
+        x_hat = a * xs[t] + (1.0 - a) * x_hat
+        out[t] = x_hat
+    return out

@@ -16,6 +16,8 @@ sampled bilinearly with zeros outside the frame.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -37,20 +39,29 @@ def to_int32(v: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(v, nan=0.0).clamp(-1e9, 1e9).to(torch.int32)
 
 
-def warp_image(img: torch.Tensor, transform: torch.Tensor, out_size: int = 256) -> torch.Tensor:
-    """img (b, h, w, c) frames, transform (b, 3, 3) output->source homographies.
+def warp_image(img: torch.Tensor, transform: torch.Tensor, out_size: int = 256,
+               frame_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """img (b, h, w, c) frames, transform (n, 3, 3) output->source homographies.
 
-    Returns (b, out_size, out_size, c) in the input dtype, zeros out of bounds.
+    ``frame_index`` (n,) int64 names the frame each crop reads (several
+    crops of one frame read its pixels in place, with no copy of the
+    frame); None: crop i reads frame i (n == b).
+    Returns (n, out_size, out_size, c) in the input dtype, zeros out of bounds.
     """
     b, h, w, c = img.shape
+    n = transform.shape[0]
     sx, sy = _source_coords(transform.to(torch.float32), out_size, out_size)
     xi = to_int32(sx)
     yi = to_int32(sy)
     in_bounds = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-    flat_idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)  # (b, s, s)
-    flat = img.reshape(b, h * w, c)
-    out = torch.gather(flat, 1, flat_idx.reshape(b, -1, 1).expand(-1, -1, c).long())
-    out = out.reshape(b, out_size, out_size, c)
+    flat_idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()  # (n, s, s)
+    if frame_index is None:
+        flat = img.reshape(b, h * w, c)
+    else:
+        flat = img.reshape(1, b * h * w, c)
+        flat_idx = flat_idx + frame_index[:, None, None] * (h * w)
+    out = torch.gather(flat, 1, flat_idx.reshape(flat.shape[0], -1, 1).expand(-1, -1, c))
+    out = out.reshape(n, out_size, out_size, c)
     return torch.where(in_bounds[..., None], out, torch.zeros((), dtype=img.dtype, device=img.device))
 
 

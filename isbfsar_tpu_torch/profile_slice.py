@@ -39,6 +39,7 @@ import dataclasses
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -110,9 +111,13 @@ def train_support(pipe: FusedPipeline, seed: int = 0) -> None:
 
 
 def build_slice(seed: int = 0, cuda_graphs: bool = True, with_focus: bool = True,
-                input_type: str = "skeleton") -> FusedPipeline:
-    """The full-width slice on the card (see the module docstring)."""
+                input_type: str = "skeleton", hpe_overrides: Optional[dict] = None
+                ) -> FusedPipeline:
+    """The full-width slice on the card (see the module docstring);
+    ``hpe_overrides`` replaces ``HPEConfig`` fields, e.g. ``{"num_aug": 5}``
+    for test-time augmentation inside the graphed step."""
     config = PipelineConfig.for_input(input_type)
+    config = dataclasses.replace(config, hpe=dataclasses.replace(config.hpe, **(hpe_overrides or {})))
     hpe = HumanPoseEstimator(config.hpe, config.intrinsics, seed=seed)
     delta = weights.load_bundle("pose-prod-256-calib")
     hpe.nets["yolo"].load_state_dict(weights.convert_variables(delta["yolo"]), strict=True)
@@ -157,15 +162,16 @@ def ci_frames(n: int = 18, faces: bool = False) -> list:
 
 
 def build_ci(device: str = "cuda", cuda_graphs=None, params=None, with_focus: bool = True,
-             focus_params=None, input_type: str = "skeleton") -> FusedPipeline:
+             focus_params=None, input_type: str = "skeleton",
+             hpe_overrides: Optional[dict] = None) -> FusedPipeline:
     """The trained CI operating point (pose-ci-motions: V2_TINY, YOLO width
     0.25 at 128, crop 128, 240x320, float32, gate 0.3) with two random
     support actions; with focus, ``focus-ci`` at ``CI_FOCUS_CFG``. rgb and
     hybrid add the ResNet-50 at a 64 crop (``CI_RGB_SIZE``); rgb runs the
-    detector alone."""
+    detector alone. ``hpe_overrides`` replaces ``HPEConfig`` fields."""
     h, w = CI_SHAPE
     hcfg = HPEConfig(yolo_input_size=128, crop_size=128, yolo_thresh=0.3, compute_dtype="float32",
-                     just_box=input_type == "rgb")
+                     just_box=input_type == "rgb", **(hpe_overrides or {}))
     intr = CI_INTRINSICS
     main = dataclasses.replace(MainConfig.for_input(input_type), cam_width=w, cam_height=h)
     ar = ARConfig.for_input(input_type, rgb_size=CI_RGB_SIZE)

@@ -1,6 +1,5 @@
 """Host I/O: frame sources + the host-side loop feeding the queue hub
-(port of ``isbfsar_tpu/runtime/source.py``, without ``HumanoidSource``,
-which renders through the JAX package's training code).
+(port of ``isbfsar_tpu/runtime/source.py``).
 
 Rebuild of the reference's host process (reference source.py:20-54,
 utils/input.py:5-59): read the camera at capture rate, forward
@@ -15,6 +14,8 @@ Sources:
 - :class:`WebcamSource` — cv2.VideoCapture(index).
 - :class:`RealSenseSource` — RealSense D435i when pyrealsense2 exists
   (reference utils/input.py contract: 640x480 BGR8 + depth).
+- :class:`HumanoidSource` — rendered humanoid motion clips
+  (``train/posestack.py``), which a trained detector fires on.
 """
 
 from __future__ import annotations
@@ -120,12 +121,50 @@ class RealSenseSource:
         self.pipeline.stop()
 
 
+class HumanoidSource:
+    """Rendered humanoid demo stream: a camera-free source the trained pose
+    stack detects at the 0.3 gate (SyntheticSource's moving square does not
+    clear a trained detector). Cycles through rendered motion clips of 32
+    frames over two cycles; the motion changes every ``frames_per_motion``
+    frames, so a live drive acquires distinct actions."""
+
+    def __init__(self, width: int = 640, height: int = 480,
+                 motions=("wave", "squat", "walk"),
+                 frames_per_motion: int = 160, fps: float = 30.0):
+        from isbfsar_tpu_torch.configs import CameraIntrinsics
+        from isbfsar_tpu_torch.train.posestack import render_motion_clip
+
+        self.width, self.height, self.fps = width, height, fps
+        self._intr = CameraIntrinsics(width=width, height=height)
+        self._clips = []
+        for m in motions:
+            frames, _ = render_motion_clip(
+                m, n_frames=32, frame_hw=(height, width),
+                intrinsics=self._intr, cycles=2.0)
+            self._clips.append(frames)
+        self._fpm = frames_per_motion
+        self._i = 0
+
+    def read(self) -> Tuple[bool, np.ndarray]:
+        clip = self._clips[(self._i // self._fpm) % len(self._clips)]
+        frame = clip[self._i % len(clip)]
+        self._i += 1
+        return True, frame
+
+    def intrinsics(self):
+        return self._intr
+
+    def stop(self) -> None:
+        pass
+
+
 def make_source(kind: str, **kw):
     return {
         "synthetic": SyntheticSource,
         "video": VideoSource,
         "webcam": WebcamSource,
         "realsense": RealSenseSource,
+        "humanoid": HumanoidSource,
     }[kind](**kw)
 
 

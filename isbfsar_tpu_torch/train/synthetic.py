@@ -17,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 
+from isbfsar_tpu_torch.utils.draw import circle
 from isbfsar_tpu_torch.utils.png import write_png
 
 MODALITY_KEYS = {"skeleton": ("sk",), "rgb": ("rgb",), "hybrid": ("rgb", "sk")}
@@ -56,31 +57,9 @@ def generate_dataset(
                 if with_images:  # draws nothing from rng
                     img = np.full((image_size, image_size, 3), 30 * (c + 1) % 255, np.uint8)
                     cx = int((0.5 + 0.3 * np.sin(2 * np.pi * freq * t + phase)) * image_size)
-                    fill_circle(img, cx, image_size // 2, image_size // 8, 255)
+                    circle(img, (cx, image_size // 2), image_size // 8, 255)
                     write_png(os.path.join(clip_dir, f"{i}.png"), img)
     return names
-
-
-def fill_circle(img: np.ndarray, cx: int, cy: int, radius: int, value: int) -> None:
-    """``cv2.circle(img, (cx, cy), radius, (value,) * 3, -1)`` (filled,
-    LINE_8, shift 0), pixel for pixel: cv2's midpoint walk from (radius, 0),
-    which fills the horizontal spans cx ± dx at rows cy ± dy and cx ± dy at
-    rows cy ± dx, each clipped to the image."""
-    h, w = img.shape[:2]
-    dx, dy, err, plus, minus = radius, 0, 0, 1, 2 * radius - 1
-    while dx >= dy:
-        for half, rows in ((dx, (cy - dy, cy + dy)), (dy, (cy - dx, cy + dx))):
-            x0, x1 = max(cx - half, 0), min(cx + half, w - 1)
-            for y in rows:
-                if 0 <= y < h and x0 <= x1:
-                    img[y, x0:x1 + 1] = value
-        dy += 1
-        err += plus
-        plus += 2
-        mask = -1 if err > 0 else 0  # (err <= 0) - 1
-        err -= minus & mask
-        dx += mask
-        minus -= mask & 2
 
 
 def episodic_batch(cfg, batch_size: int, rgb_size: int, modality: str, seed: int = 0):

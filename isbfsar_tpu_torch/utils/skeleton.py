@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -53,7 +53,11 @@ def load_expand_joints(path: str = "") -> np.ndarray:
     return np.load(path or os.path.join(ASSETS_DIR, "joints_32_to_122.npy")).astype(np.float32)
 
 
-def joint_matrix(skeleton: str, expand_path: str = "", skeletons_path: str = "") -> np.ndarray:
-    """(32, n_joints) fused 32->122 expansion and skeleton selection."""
+def joint_matrix(skeleton: Optional[str], expand_path: str = "",
+                 skeletons_path: str = "") -> np.ndarray:
+    """(32, n_joints) fused 32->122 expansion and skeleton selection; the
+    whole (32, 122) expansion when ``skeleton`` is None."""
     expand = load_expand_joints(expand_path)
+    if skeleton is None:
+        return np.ascontiguousarray(expand)
     return np.ascontiguousarray(expand[:, list(get_skeleton(skeleton, skeletons_path).indices)])

@@ -111,6 +111,23 @@ def test_graph_replay_equals_eager(ci_pipes):
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"output {i} {key}")
 
 
+def test_tta_graph_replay_equals_eager(cuda):
+    """num_aug=5 ("mean") inside the graphed step at the CI size: the
+    augmentations' tensors live on the card, so capture takes the step and
+    the replays equal the eager step, bit for bit."""
+    from isbfsar_tpu_torch.profile_slice import build_ci, ci_frames, twin
+
+    graphs = build_ci("cuda", cuda_graphs=True, hpe_overrides={"num_aug": 5})
+    eager = twin(graphs, cuda_graphs=False)
+    frames = ci_frames(18, faces=True)
+    ours, ref = _run(graphs, frames), _run(eager, frames)
+    assert sorted(graphs._graphs) == [1, 8]
+    for i, (a, b) in enumerate(zip(ours, ref, strict=True)):
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=f"output {i} {key}")
+    assert any(o["pose_ok"] for o in ours)
+
+
 def test_launches_are_counted_under_replay(ci_pipes):
     graphs, _, frames = ci_pipes
     graphs.step(frames[0])  # B=1 is captured by now

@@ -11,7 +11,9 @@ host crop; then the recognizer's training and evaluation: a
 training epoch of 2 steps on a synthetic tree, a checkpoint written and
 read back, and one FSOS repeat; then rgb training: a train step with remat
 at a 32 crop, a PNG round trip, and a synthetic tree with PNG crops whose
-clip the rgb loader reads."""
+clip the rgb loader reads; then a rendered humanoid clip, the humanoid
+source, a 122-joint estimate with test-time augmentation, the extraction
+of a PNG clip, the full YOLO postprocessing and the offline One-Euro."""
 
 import os
 import subprocess
@@ -142,6 +144,33 @@ SCRIPT = textwrap.dedent(r"""
         clip = EpisodicSampler(tmp + "/rgb_tree", l=8, input_type="hybrid").load_clip(
             tmp + "/rgb_tree/action_00/0")
         assert clip["rgb"].shape == (8, 224, 224, 3) and clip["sk"].shape == (8, 90)
+
+        # the humanoid renderer, its source, TTA with 122 joints, the full
+        # YOLO postprocessing, the offline One-Euro and the extraction twin
+        import torch
+        from isbfsar_tpu_torch.ops.nms import postprocess_yolo
+        from isbfsar_tpu_torch.ops.smooth import one_euro
+        from isbfsar_tpu_torch.runtime.source import make_source
+        from isbfsar_tpu_torch.tools.extract_dataset import extract_tree
+        from isbfsar_tpu_torch.train.posestack import render_motion_clip
+        from isbfsar_tpu_torch.utils.png import write_png
+        frames, gts = render_motion_clip("wave", n_frames=3, frame_hw=(120, 160), intrinsics=intr)
+        assert frames[0].shape == (120, 160, 3) and gts[0]["joints2d"].shape == (32, 2)
+        ok, shot = make_source("humanoid", width=160, height=120, frames_per_motion=4).read()
+        assert ok and shot.shape == (120, 160, 3)
+        tta = HumanPoseEstimator(dataclasses.replace(hpe_cfg, skeleton=None, num_aug=5), intr,
+                                 seed=0, backbone_stages=V2_TINY, frame_shape=(120, 160),
+                                 yolo_width=0.25, device="cpu")
+        assert tta.estimate(frames[0])["pose"].shape == (122, 3) and tta.edges is None
+        for k, f in enumerate(frames):
+            os.makedirs(f"{tmp}/frames/wave/0", exist_ok=True)
+            write_png(f"{tmp}/frames/wave/0/{k}.png", f)
+        import contextlib, io
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert len(extract_tree(tta, tmp + "/frames", tmp + "/extracted", n_frames=4)) == 1
+        dets, keep = postprocess_yolo(torch.rand(2, 100, 1, 4), torch.rand(2, 100, 80))
+        assert dets.shape == (2, 64, 6) and keep.shape == (2, 64)
+        assert np.array_equal(one_euro(np.ones((5, 3), np.float32)), np.ones((5, 3), np.float32))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))

@@ -19,7 +19,8 @@ import pytest
 from isbfsar_tpu.train import dataloader as jdl
 from isbfsar_tpu.train.synthetic import generate_dataset as jax_generate_dataset
 from isbfsar_tpu_torch.train import dataloader as tdl
-from isbfsar_tpu_torch.train.synthetic import fill_circle, generate_dataset
+from isbfsar_tpu_torch.train.synthetic import generate_dataset
+from isbfsar_tpu_torch.utils.draw import circle
 from isbfsar_tpu_torch.utils import png
 
 SIZES = [(1, 1), (5, 7), (33, 17), (64, 48)]
@@ -168,7 +169,7 @@ def test_fill_circle_is_cv2s_circle():
                 want = np.full((size, size + 3, 3), 9, np.uint8)
                 got = want.copy()
                 cv2.circle(want, (cx, cy), r, (255, 255, 255), -1)
-                fill_circle(got, cx, cy, r, 255)
+                circle(got, (cx, cy), r, 255)
                 np.testing.assert_array_equal(got, want, err_msg=str((size, cx, cy, r)))
 
 
