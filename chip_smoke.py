@@ -135,9 +135,36 @@ Phases, each timed; any failure exits non-zero and prints no result:
    against CPU in float32 (``TOL_EXTRACT``). Neither kernel runs in (a)
    and (c): both counts must stay 0 there.
 
+11. the synthetic trainers: (a) at the CI size, one step of each of the
+   five trainers on the card and on the CPU from one init and one batch
+   (``YoloTrainer`` at width 0.25 and 128, ``HeatmapTrainer`` at
+   ``V2_TINY`` with a 128 crop, the three focus trainers at
+   ``CI_FOCUS_CFG``): the loss, the gradients (Adam's first moment), the
+   parameter update and the running stats within that trainer's
+   ``TOL_SYNTH_TRAIN``; the heatmap step again with TF32 on, which must
+   fail its limits (a check that they see such a fault); the gaze crop
+   and labels at ``FocusConfig()``, batch 8, made through the
+   focus-geometry kernel on the card and held against
+   ``focus_geometry_reference`` (``TOL_GAZE_CROP``, ``TOL_GAZE_LABELS``);
+   and ``evaluate_pose_stack`` on ``pose-ci-motions`` (a few scenes,
+   float32) card against CPU, found and false-positive counts exact; (b)
+   at the tool's ``--production`` sizes on 480x640 frames, batch 8:
+   YoloTrainer at width 1.0 and 256 and HeatmapTrainer at ``V2_L`` with a
+   256 crop, each one step without remat and one with from one init and
+   batch (cuDNN deterministic; peak memory of each, the two steps equal
+   within ``TOL_REMAT``), then a warm-up step and ``SYNTH_TIMED_STEPS``
+   timed steps (p50, fastest and slowest) with the host sampler's time
+   per batch beside them; ``finetune_detector`` from the bundled ``pose-prod-256-calib``
+   YOLO branch (bf16 cast up to float32) and ``train_focus_params`` at
+   ``FocusConfig()`` (224, bf16), each cut to ``SYNTH_FIT_STEPS`` steps
+   a phase; every loss finite. 11a's path launches neither kernel (the
+   gaze crop's check launches the focus-geometry kernel once, a
+   comparison, not counted); 11b launches it once per gaze batch and the
+   I420 kernel never.
+
 The four weight files are required (``pose-ci-motions``, ``focus-ci``, the
 ``pose-prod-256-calib`` delta and ``pose-diverse-256``): a missing one
-fails the run.
+fails the run; phase 11 reads no other.
 
 The ``[phases]`` line gives each phase's seconds, and the ``kernels``
 line each kernel's launches by path, the paths of phase 10 included. The
@@ -164,6 +191,7 @@ import torch
 from isbfsar_tpu_torch import weights
 from isbfsar_tpu_torch.kernel_bench import (TOL_HEAD, face_cases, graph_ms, head_pose_bound,
                                             head_pose_errors, launch_ms, loop_ms, newton_steps)
+from isbfsar_tpu_torch.models.layers import pin_float32_matmul
 from isbfsar_tpu_torch.ops import build, fused_input, head_pose
 from isbfsar_tpu_torch.ops.image import bgr_to_i420, i420_to_bgr
 from isbfsar_tpu_torch.profile_slice import (build_ci, build_slice, ci_frames, profile_steps,
@@ -338,6 +366,43 @@ WORKFLOW_KW = dict(clips_per_class=2, exemplar_clips=1, n_epochs=2, n_task=16, f
 TOL_EXTRACT = 1e-6
 EXACT = ("pose_ok", "ar_ready", "f_found")
 KERNELS = (fused_input.fused_i420_inputs, head_pose.focus_geometry)
+
+# Phase 11: the synthetic trainers. TOL_SYNTH_TRAIN holds one CI-size step
+# on the card against the CPU from one init and batch: the loss, the
+# gradient (Adam's first moment after the step) and the step's parameter
+# update, each as one vector in relative L2, and the running stats (largest
+# difference). Not each parameter: Adam's first update is about lr *
+# sign(g), and in float32 YOLO's gradient entries that lie near zero take
+# opposite signs on the two devices (on an H100 80GB HBM3 at 700 W: a full
+# 2 lr apart while the gradient read 3.5e-3 in relative L2). Each trainer
+# has its own limits, each about four times that trainer's reading on that
+# card (the readings were the same in two runs; LandmarkRefiner's loss read
+# 0 and is held to about seven float32 ulps of its 0.15):
+#   yolo     loss 3.8e-6  grad 3.5e-3  update 5.9e-2  stats 9.1e-6
+#   heatmap  loss 6.0e-8  grad 3.6e-6  update 9.3e-4  stats 3.6e-7
+#   blaze    loss 2.4e-7  grad 1.1e-6  update 1.3e-5  stats 4.8e-7
+#   lm       loss 0       grad 3.2e-6  update 1.6e-4  stats 1.2e-7
+#   gaze     loss 2.9e-6  grad 1.7e-5  update 8.0e-4  stats 1.2e-6
+TOL_SYNTH_TRAIN = {
+    "yolo": {"loss": 1.5e-5, "grad_l2": 1.5e-2, "update_l2": 0.25, "stats": 4e-5},
+    "heatmap": {"loss": 2.5e-7, "grad_l2": 1.5e-5, "update_l2": 4e-3, "stats": 1.5e-6},
+    "blaze": {"loss": 1e-6, "grad_l2": 5e-6, "update_l2": 6e-5, "stats": 2e-6},
+    "lm": {"loss": 1e-7, "grad_l2": 1.3e-5, "update_l2": 7e-4, "stats": 5e-7},
+    "gaze": {"loss": 1.2e-5, "grad_l2": 7e-5, "update_l2": 3.2e-3, "stats": 5e-6},
+}
+# the kernel's gaze crops (RGB / 255) against the plain geometry's on the
+# card: the approximate reciprocals move a sample point by about 1e-4 px
+# (read 1.65e-4 at a 64 px crop on an H100 80GB HBM3 at 700 W); the gaze
+# labels through the kernel's normalizing rotation (read 1.8e-7 rad)
+TOL_GAZE_CROP = 7e-4
+TOL_GAZE_LABELS = 1e-6
+# evaluate_pose_stack card against CPU, in metres and IoU (read 6.0e-8 at
+# most on that card); found and false-positive rates exact
+TOL_EVAL = {"iou_mean": 1e-6, "rel_err_m": 1e-6, "abs_err_m": 1e-6, "dist_err_m": 1e-6}
+SYNTH_BATCH = 8  # the tool's --batch default at --production
+SYNTH_TIMED_STEPS = 10  # each timed trainer's steps (3 swung their p50 by 30%)
+SYNTH_FIT_STEPS = 3  # finetune_detector's and train_focus_params' steps a phase
+SYNTH_EVAL = dict(n_scenes=4, n_empty=3, n_hard_empty=2)
 
 
 def log(msg: str) -> None:
@@ -1725,6 +1790,328 @@ def run_tta(card: str) -> dict:
     return by_path
 
 
+def synth_trainer(kind: str, device: str, variables=None):
+    """Phase 11a: the CI-size trainer of ``kind`` on ``device`` (the port's
+    seeded init, or ``variables``)."""
+    from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
+    from isbfsar_tpu_torch.train import gazefocus as gf
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    if kind == "yolo":
+        return ps.YoloTrainer(width=0.25, input_size=128, lr=1e-3, variables=variables,
+                              device=device)
+    if kind == "heatmap":
+        return ps.HeatmapTrainer(ps.CI_INTRINSICS, crop_size=128, stages=V2_TINY,
+                                 variables=variables, device=device)
+    cls = {"blaze": gf.BlazeFaceTrainer, "lm": gf.LandmarkRefinerTrainer,
+           "gaze": gf.GazeTrainer}[kind]
+    return cls(gf.CI_FOCUS_CFG, variables=variables, device=device)
+
+
+def synth_batch(kind: str) -> dict:
+    """Phase 11a: one CI-size batch of 2 for ``kind``, made on the host (the
+    gaze crops through the plain geometry on the CPU)."""
+    from isbfsar_tpu_torch.train import gazefocus as gf
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    if kind in ("yolo", "heatmap"):
+        sampler = ps.SyntheticHumanSampler(ps.CI_FRAME_HW, ps.CI_INTRINSICS, seed=1)
+        if kind == "yolo":
+            return ps.detector_batch(sampler, 2, 128, np.asarray([320, 240, 320, 240],
+                                                                 np.float32), 0.5)
+        return ps.pose_batch(sampler, 2, 0.08)
+    sampler = gf.SyntheticFaceSampler(seed=1)
+    if kind == "blaze":
+        return gf.face_detector_batch(sampler, 2)
+    if kind == "lm":
+        return gf.refiner_batch(sampler, 2)
+    frames, lms, gazes = gf.gaze_batch(sampler, 2, 0.005)
+    crops, r_norm = gf.make_normalized_crop_fn(gf.CI_FOCUS_CFG, with_rnorm=True,
+                                               device="cpu")(frames, lms)
+    return {"crop": crops.numpy(), "pitchyaw": gf.gaze_labels(gazes, r_norm).numpy()}
+
+
+def synth_state(trainer) -> tuple:
+    """(parameters, Adam's first moments, running stats) of a trainer, as
+    CPU float64 tensors in its optimizer's order (the stats by name)."""
+    mods = ([trainer.bbone, trainer.head] if hasattr(trainer, "bbone") else [trainer.net])
+    stats = {f"{i}.{k}": v.detach().double().cpu() for i, m in enumerate(mods)
+             for k, v in m.state_dict().items() if k.endswith((".mean", ".var"))}
+    opt = trainer.optimizer
+    return ([p.detach().double().cpu() for p in opt.params],
+            [m.detach().double().cpu() for m in opt.mu], stats)
+
+
+def rel_l2(got: list, want: list) -> float:
+    got, want = torch.cat([t.ravel() for t in got]), torch.cat([t.ravel() for t in want])
+    return float((got - want).norm() / want.norm())
+
+
+def synth_step_errors(kind: str, tf32: bool = False) -> dict:
+    """Phase 11a: one CI-size step of ``kind`` on the card against the CPU
+    from one init and batch (on the card with TF32 on if ``tf32``);
+    returns the differences."""
+    cpu = synth_trainer(kind, "cpu")
+    card = synth_trainer(kind, "cuda", variables=cpu.variables)  # pins TF32 off
+    p0 = synth_state(cpu)[0]
+    b = synth_batch(kind)
+    loss = {"cpu": cpu.train_step(b)}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        loss["card"] = card.train_step(b)
+    finally:
+        pin_float32_matmul()
+    (p_cpu, mu_cpu, st_cpu), (p_card, mu_card, st_card) = synth_state(cpu), synth_state(card)
+    return {"loss": abs(loss["cpu"] - loss["card"]),
+            "grad_l2": rel_l2(mu_card, mu_cpu),
+            "update_l2": rel_l2([a - o for a, o in zip(p_card, p0)],
+                                [a - o for a, o in zip(p_cpu, p0)]),
+            "stats": max(float((st_card[k] - v).abs().max()) for k, v in st_cpu.items()),
+            "finite": bool(np.isfinite(loss["card"]))}
+
+
+def check_gaze_crop() -> dict:
+    """Phase 11a: one gaze batch's crops at ``FocusConfig()`` and batch 8,
+    as 11b's ``train_focus_params`` makes them, through the focus-geometry
+    kernel on the card against the plain geometry's on the card, and the
+    labels; returns the largest differences (the kernel's launch is a
+    comparison: it is not counted on a path)."""
+    from isbfsar_tpu_torch.configs import CameraIntrinsics, FocusConfig
+    from isbfsar_tpu_torch.ops.warp import warp_image_bilinear
+    from isbfsar_tpu_torch.train import gazefocus as gf
+
+    cfg = FocusConfig()
+    frames, lms, gazes = gf.gaze_batch(gf.SyntheticFaceSampler(seed=2), SYNTH_BATCH, 0.005)
+    crops, r_norm = gf.make_normalized_crop_fn(cfg, with_rnorm=True, device="cuda")(frames, lms)
+    k = torch.from_numpy(CameraIntrinsics().matrix()).cuda()
+    dist, size = cfg.normalized_camera_distance, cfg.gaze_image_size
+    ref = head_pose.focus_geometry_reference(torch.from_numpy(lms).cuda(), k, dist, dist, size)
+    ref_crops = warp_image_bilinear(torch.from_numpy(frames).cuda().float(), ref.warp,
+                                    size).flip(-1) / 255.0
+    torch.cuda.synchronize()
+    return {"crop": float((crops - ref_crops).abs().max()),
+            "labels": float((gf.gaze_labels(gazes, r_norm)
+                             - gf.gaze_labels(gazes, ref.r_norm)).abs().max())}
+
+
+def check_synth_eval() -> dict:
+    """Phase 11a: ``evaluate_pose_stack`` on pose-ci-motions in float32 on
+    the card and on the CPU (the module-path estimator)."""
+    from isbfsar_tpu_torch.configs import HPEConfig
+    from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
+    from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    params = weights.load_bundle("pose-ci-motions")
+    out = {}
+    for device in ("cuda", "cpu"):
+        est = HumanPoseEstimator(HPEConfig(yolo_input_size=128, crop_size=128,
+                                           compute_dtype="float32"),
+                                 ps.CI_INTRINSICS, params=params, backbone_stages=V2_TINY,
+                                 frame_shape=ps.CI_FRAME_HW, yolo_width=0.25, device=device)
+        out["card" if device == "cuda" else "cpu"] = ps.evaluate_pose_stack(
+            est, ps.CI_FRAME_HW, ps.CI_INTRINSICS, **SYNTH_EVAL)
+    return out
+
+
+def timed_steps(trainer, make_batch, n: int) -> tuple:
+    """One warm-up step, then n timed steps, each batch made on the host
+    first: (step seconds, sampler seconds per batch, losses); the card
+    synchronised around each step. The warm-up is the first step after the
+    remat pair's deterministic cuDNN: without it, 10 timed steps on an H100
+    80GB HBM3 at 700 W read a slowest step 2.5-4.3 times their p50."""
+    losses = [trainer.train_step(make_batch())]
+    step_s, load_s = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        b = make_batch()
+        load_s.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(trainer.train_step(b))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    return step_s, load_s, losses
+
+
+def synth_remat_pair(make_trainer, b: dict) -> tuple:
+    """One step without remat and one with from one init and batch, cuDNN
+    deterministic: (the trainer without remat, each step's peak GiB above
+    the memory held before it, the largest parameter and running-stat
+    difference after it, both losses)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    trainers, peak, losses = {}, {}, []
+    try:
+        for remat in (False, True):
+            trainer = make_trainer(remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            losses.append(trainer.train_step(b))
+            torch.cuda.synchronize()
+            # the step's own peak: above what the trainers held before it
+            # (both trainers' parameters and Adam moments stay allocated)
+            peak[remat] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            trainers[remat] = trainer
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, other = synth_state(trainers[False]), synth_state(trainers[True])
+    err = {"params": max(float((a - b_).abs().max()) for a, b_ in zip(plain[0], other[0])),
+           "batch_stats": max(float((plain[2][k] - v).abs().max()) for k, v in other[2].items())}
+    return trainers[False], peak, err, losses
+
+
+def run_synth_full(card: str) -> dict:
+    """Phase 11b: the trainers at the tool's --production sizes; returns the
+    readings. The caller reads the launch counts around this."""
+    from isbfsar_tpu_torch.configs import CameraIntrinsics, FocusConfig
+    from isbfsar_tpu_torch.models.effnetv2 import V2_L
+    from isbfsar_tpu_torch.train import gazefocus as gf
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    hw, intr = ps.PROD_FRAME_HW, CameraIntrinsics()
+    norm = np.asarray([hw[1], hw[0], hw[1], hw[0]], np.float32)
+    yolo_kw = dict(width=1.0, input_size=256)
+    pose_kw = dict(crop_size=256, stages=V2_L, huber_beta=0.02)
+    out = {}
+    det_sampler = ps.SyntheticHumanSampler(hw, intr, seed=3)
+    make_det = lambda: ps.detector_batch(det_sampler, SYNTH_BATCH, 256, norm, 0.12)  # noqa
+    init = ps.YoloTrainer(device="cpu", **yolo_kw).variables
+    trainer, peak, err, losses = synth_remat_pair(
+        lambda remat: ps.YoloTrainer(variables=init, remat=remat, device="cuda", **yolo_kw),
+        make_det())
+    step, load, more = timed_steps(trainer, make_det, SYNTH_TIMED_STEPS)
+    out["YoloTrainer width 1.0 @256"] = dict(step_s=step, load_s=load, peak_gib=peak,
+                                             remat_err=err, losses=losses + more)
+    del trainer, init
+    pose_sampler = ps.SyntheticHumanSampler(hw, intr, seed=4)
+    make_pose = lambda: ps.pose_batch(pose_sampler, SYNTH_BATCH, 0.08)  # noqa: E731
+    init = ps.HeatmapTrainer(intr, device="cpu", **pose_kw).variables
+    trainer, peak, err, losses = synth_remat_pair(
+        lambda remat: ps.HeatmapTrainer(intr, variables=init, remat=remat, device="cuda",
+                                        **pose_kw), make_pose())
+    step, load, more = timed_steps(trainer, make_pose, SYNTH_TIMED_STEPS)
+    out["HeatmapTrainer V2_L crop 256"] = dict(step_s=step, load_s=load, peak_gib=peak,
+                                               remat_err=err, losses=losses + more)
+    del trainer, init
+    t = time.perf_counter()
+    delta = weights.load_bundle("pose-prod-256-calib")
+    yolo = ps.finetune_detector(delta, hw, intr, n_steps=SYNTH_FIT_STEPS,
+                                batch_size=SYNTH_BATCH, yolo_width=1.0, yolo_input_size=256,
+                                log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    out["finetune_detector from pose-prod-256-calib"] = dict(
+        seconds=time.perf_counter() - t, steps=SYNTH_FIT_STEPS,
+        finite=all(bool(torch.isfinite(x).all()) for x in _leaves(yolo)))
+    t = time.perf_counter()
+    focus = gf.train_focus_params(FocusConfig(), n_steps_det=SYNTH_FIT_STEPS,
+                                  n_steps_gaze=SYNTH_FIT_STEPS, n_steps_lm=SYNTH_FIT_STEPS,
+                                  batch_size=SYNTH_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    out["train_focus_params FocusConfig() (224, bf16)"] = dict(
+        seconds=time.perf_counter() - t, steps=SYNTH_FIT_STEPS,
+        finite=all(bool(torch.isfinite(x).all()) for x in _leaves(focus)))
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def spread_ms(seconds: list) -> str:
+    return (f"p50 {p50_ms(seconds):.2f} ms (fastest {min(seconds) * 1e3:.2f}, slowest "
+            f"{max(seconds) * 1e3:.2f})")
+
+
+def run_synth(card: str) -> dict:
+    """Phase 11: the synthetic trainers; returns each path's kernel launches."""
+    zero_launches()
+    t = time.perf_counter()
+    small = {kind: synth_step_errors(kind) for kind in TOL_SYNTH_TRAIN}
+    evals = check_synth_eval()
+    counts_small = launches()
+    # comparisons, not paths: the TF32 control launches no kernel of ours,
+    # the crop check the focus-geometry kernel once
+    tf32 = synth_step_errors("heatmap", tf32=True)
+    crop = check_gaze_crop()
+    log(f"[synth] 11a in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    zero_launches()
+    full = run_synth_full(card)
+    counts = launches()
+    log(f"[synth] 11b in {time.perf_counter() - t:.1f} s")
+
+    def readings(e: dict, tol: dict) -> str:
+        return " ".join(f"{k}={e[k]:.3g} (limit {v:g})" for k, v in tol.items())
+
+    for kind, e in small.items():
+        log(f"[synth] {kind} one CI-size step, card vs CPU: "
+            + readings(e, TOL_SYNTH_TRAIN[kind]))
+    tf32_over = [k for k, v in TOL_SYNTH_TRAIN["heatmap"].items() if not tf32[k] <= v]
+    log("[synth] heatmap one CI-size step with TF32 on the card (must fail its limits), card "
+        f"vs CPU: {readings(tf32, TOL_SYNTH_TRAIN['heatmap'])}; over: {tf32_over}")
+    log(f"[synth] gaze crop at FocusConfig(), batch {SYNTH_BATCH}, through focus_geometry "
+        f"(kernel) vs focus_geometry_reference on the card: crops {crop['crop']:.3g} (limit "
+        f"{TOL_GAZE_CROP:g}), labels {crop['labels']:.3g} (limit {TOL_GAZE_LABELS:g})")
+    log(f"[synth] evaluate_pose_stack on pose-ci-motions ({SYNTH_EVAL}), card {evals['card']}; "
+        f"CPU {evals['cpu']}")
+    for name, r in full.items():
+        if "step_s" in r:
+            log(f"[synth] {name}, batch {SYNTH_BATCH} on 480x640 frames, {SYNTH_TIMED_STEPS} "
+                f"steps after a warm-up: train step {spread_ms(r['step_s'])} (the card "
+                f"synchronised around each); host sampler {spread_ms(r['load_s'])} per batch = "
+                f"{p50_ms(r['load_s']) / p50_ms(r['step_s']):.2f}x the step (steps, ms: "
+                f"{[round(x * 1e3, 2) for x in r['step_s']]}); the step's peak "
+                f"memory above what was held before it {r['peak_gib'][False]:.2f} GiB without "
+                f"remat, {r['peak_gib'][True]:.2f} GiB with; remat vs not after one step: "
+                + " ".join(f"{k}={v:.3g} (limit {TOL_REMAT[k]:g})"
+                           for k, v in r["remat_err"].items())
+                + f"; losses {r['losses']}; {card}")
+        else:
+            log(f"[synth] {name}: {r['steps']} steps a phase, batch {SYNTH_BATCH}, in "
+                f"{r['seconds']:.1f} s; {card}")
+    log(f"[synth] launches in 11a {counts_small}, in 11b {counts}")
+
+    over = [f"{kind} {k} {e[k]} > {v}" for kind, e in small.items()
+            for k, v in TOL_SYNTH_TRAIN[kind].items() if not e[k] <= v]
+    over += [f"{kind}: a non-finite loss" for kind, e in small.items() if not e["finite"]]
+    if not tf32_over:
+        over.append("the heatmap step with TF32 on passed every limit: they cannot see it")
+    if not crop["crop"] <= TOL_GAZE_CROP:
+        over.append(f"gaze crop {crop['crop']} > {TOL_GAZE_CROP}")
+    if not crop["labels"] <= TOL_GAZE_LABELS:
+        over.append(f"gaze labels {crop['labels']} > {TOL_GAZE_LABELS}")
+    for key in ("found_rate", "empty_fp_rate", "hard_empty_fp_rate"):
+        if evals["card"][key] != evals["cpu"][key]:
+            over.append(f"evaluate_pose_stack {key}: card {evals['card'][key]}, CPU "
+                        f"{evals['cpu'][key]}")
+    for key, tol in TOL_EVAL.items():
+        if not abs(evals["card"][key] - evals["cpu"][key]) <= tol:
+            over.append(f"evaluate_pose_stack {key} differs by more than {tol}")
+    for name, r in full.items():
+        if "losses" in r and not all(np.isfinite(r["losses"])):
+            over.append(f"{name}: a non-finite loss {r['losses']}")
+        if "finite" in r and not r["finite"]:
+            over.append(f"{name}: a non-finite parameter")
+        over += [f"{name} remat {k} {v} > {TOL_REMAT[k]}"
+                 for k, v in r.get("remat_err", {}).items() if not v <= TOL_REMAT[k]]
+    if over:
+        raise AssertionError("synthetic trainers: " + "; ".join(over))
+    # 11a runs neither kernel (its gaze batch is made on the CPU); 11b
+    # launches the focus-geometry kernel once per gaze batch, the I420
+    # kernel never
+    check_launches("synthetic trainers, CI size", counts_small, 0)
+    check_launches("synthetic trainers at full width", counts,
+                   {"fused_i420_inputs": 0, "focus_geometry": SYNTH_FIT_STEPS})
+    return {"synthetic trainers, CI size, card vs CPU (11a)": counts_small,
+            "synthetic trainers at full width (11b)": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -1775,6 +2162,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_tta(card))
     phases["tta"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path.update(run_synth(card))
+    phases["synth"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

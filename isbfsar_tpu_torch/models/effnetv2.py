@@ -4,17 +4,21 @@
 Fused-MBConv and MBConv+SE stages; (b, 3, s, s) in [0, 1] ->
 (b, 1280, s/32, s/32) float32. BatchNorm eps 1e-3. Stride-2 convs pad
 like XLA's ``SAME`` (0 before, 1 after on even sizes), not symmetrically.
+``forward(x, train=True, stats=...)`` trains with batch statistics
+(``models/layers.py::BatchNorm``); ``remat`` recomputes each MBConv in the
+backward pass, as the JAX net's ``nn.remat(MBConv)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from isbfsar_tpu_torch.models.layers import BatchNorm, Conv
+from isbfsar_tpu_torch.models.layers import BatchNorm, Conv, train_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,19 +91,20 @@ class MBConv(nn.Module):
             self.project_conv = Conv(mid, out, 1, bias=False)
             self.project_bn = BatchNorm(out, _EPS)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
         spec = self.spec
+        t = (train, stats)
         if spec.fused and spec.expand != 1:
-            y = F.silu(self.expand_bn(self.expand_conv(x)))
-            y = self.project_bn(self.project_conv(y))
+            y = F.silu(self.expand_bn(self.expand_conv(x), *t))
+            y = self.project_bn(self.project_conv(y), *t)
         elif spec.fused:
-            y = F.silu(self.project_bn(self.project_conv(x)))
+            y = F.silu(self.project_bn(self.project_conv(x), *t))
         else:
-            y = F.silu(self.expand_bn(self.expand_conv(x)))
-            y = F.silu(self.depthwise_bn(self.depthwise_conv(y)))
+            y = F.silu(self.expand_bn(self.expand_conv(x), *t))
+            y = F.silu(self.depthwise_bn(self.depthwise_conv(y), *t))
             if spec.se_ratio > 0:
                 y = self.se(y)
-            y = self.project_bn(self.project_conv(y))
+            y = self.project_bn(self.project_conv(y), *t)
         return y + x if self.residual else y
 
 
@@ -107,9 +112,10 @@ class EfficientNetV2(nn.Module):
     """(b, 3, s, s) float in [0, 1] -> (b, head_filters, s/32, s/32) float32."""
 
     def __init__(self, stages=V2_L, stem_filters: int = 32, head_filters: int = 1280,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.stem_conv = Conv(3, stem_filters, 3, 2, bias=False)
         self.stem_bn = BatchNorm(stem_filters, _EPS)
         self.blocks = []  # registered under the Flax names stage{s}_block{b}
@@ -123,11 +129,11 @@ class EfficientNetV2(nn.Module):
         self.head_conv = Conv(cin, head_filters, 1, bias=False)
         self.head_bn = BatchNorm(head_filters, _EPS)
 
-    def forward(self, x):
-        x = F.silu(self.stem_bn(self.stem_conv(x.to(self.dtype))))
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
+        x = F.silu(self.stem_bn(self.stem_conv(x.to(self.dtype)), train, stats))
         for block in self.blocks:
-            x = block(x)
-        x = F.silu(self.head_bn(self.head_conv(x)))
+            x = train_block(block, x, self.remat, stats) if train else block(x)
+        x = F.silu(self.head_bn(self.head_conv(x), train, stats))
         return x.to(torch.float32)
 
 

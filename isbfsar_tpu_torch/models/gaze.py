@@ -11,9 +11,13 @@
 The modules keep the Flax module names, so ``weights.convert_focus``
 maps the bundle's keys one to one. Each net computes in ``dtype``; the
 dense layers and the decode run in float32, as in the JAX modules.
+``forward(x, train=True, stats=...)`` trains with batch statistics
+(``models/layers.py::BatchNorm``), as the focus trainers do.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,14 +36,24 @@ def pitchyaw_to_vector(pitchyaw: torch.Tensor) -> torch.Tensor:
                         -torch.cos(pitch) * torch.cos(yaw)], dim=-1)
 
 
+def vector_to_pitchyaw(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) gaze vector -> (..., 2) pitch/yaw radians; the inverse of
+    :func:`pitchyaw_to_vector` for unit vectors (ETH-XGaze convention)."""
+    n = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    pitch = torch.asin(torch.clamp(-n[..., 1], -1.0, 1.0))
+    yaw = torch.atan2(-n[..., 0], -n[..., 2])
+    return torch.stack([pitch, yaw], dim=-1)
+
+
 class GazeNet(nn.Module):
     def __init__(self, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.ResNet_0 = resnet18(dtype)
         self.gaze_fc = nn.Linear(512, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gaze_fc(self.ResNet_0(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
+        return self.gaze_fc(self.ResNet_0(x, train, stats))
 
 
 class LandmarkRefiner(nn.Module):
@@ -54,10 +68,11 @@ class LandmarkRefiner(nn.Module):
         self.fc1 = nn.Linear(4 * 4 * 192, 128)
         self.fc2 = nn.Linear(128, 12)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
         x = x.to(self.dtype)
         for i in range(4):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train, stats))
         # flatten in the JAX layout (h, w, c)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).to(torch.float32)
         out = self.fc2(F.relu(self.fc1(x)))
@@ -76,8 +91,9 @@ class _BlazeBlock(nn.Module):
         self.pw = Conv(cin, filters, 1, bias=False)
         self.bn = BatchNorm(filters, _EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn(self.pw(self.dw(x)))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
+        y = self.bn(self.pw(self.dw(x)), train, stats)
         residual = F.max_pool2d(x, 2, 2) if self.stride == 2 else x
         if self.pad:
             residual = F.pad(residual, (0, 0, 0, 0, 0, self.pad))
@@ -137,7 +153,7 @@ class BlazeFaceLite(nn.Module):
         self.register_buffer("anchors", blaze_anchors(self.input_size), persistent=False)
         self.register_buffer("sizes", blaze_anchor_sizes(self.input_size), persistent=False)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False, stats: Optional[list] = None):
         b = x.shape[0]
         if x.shape[2:] != (self.input_size, self.input_size):
             raise ValueError(f"BlazeFaceLite takes {self.input_size}x{self.input_size} inputs, "
@@ -145,7 +161,7 @@ class BlazeFaceLite(nn.Module):
         x = F.relu(self.stem(x.to(self.dtype)))
         feat16 = None
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train, stats)
             if name == "mid1":
                 feat16 = x  # (b, 48, 16, 16) at 128 px
         n_out = 4 + 2 * self.n_landmarks + 1

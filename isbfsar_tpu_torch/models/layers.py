@@ -15,6 +15,12 @@
 * :func:`init_random` fills a net with seeded random weights (truncated
   LeCun normal kernels, zero biases, identity normalization), as Flax
   initializes.
+* :func:`train_block` runs one block of a net in training, optionally
+  recomputed in the backward pass (``torch.utils.checkpoint``, the
+  counterpart of Flax's ``nn.remat`` around the block): the block returns
+  its BatchNorms' batch statistics from inside the checkpoint and they are
+  collected outside it, so the recomputation moves no running average a
+  second time and the step is the same, bit for bit.
 * :func:`pin_float32_matmul` turns TF32 off for matmuls and cuDNN
   convolutions (process-wide PyTorch state): where the JAX code computes in
   float32 (``Precision.HIGHEST``), so must the port; :func:`float32_device`
@@ -29,10 +35,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
-# the running averages' momentum in training: the ResNets' (JAX
-# models/resnet.py:98-100); the port's other nets never train
+# the running averages' momentum in training: every BatchNorm of the JAX
+# nets that train uses 0.9 (JAX models/resnet.py:98-100, yolov4.py:55,
+# effnetv2.py:91 and :143, gaze.py:84 and :130), not Flax's default 0.99
 BN_MOMENTUM = 0.9
 
 
@@ -76,6 +84,26 @@ def update_running_stats(stats: list) -> None:
     they were computed."""
     for norm, mean, var in stats:
         norm.update(mean, var)
+
+
+def _block_with_stats(block: nn.Module, x: torch.Tensor):
+    """One block in training, returning its output and its BatchNorms'
+    batch statistics (the function a checkpoint recomputes)."""
+    stats = []
+    return block(x, True, stats), stats
+
+
+def train_block(block: nn.Module, x: torch.Tensor, remat: bool,
+                stats: Optional[list]) -> torch.Tensor:
+    """``block(x, True, stats)``, recomputed in the backward pass when
+    ``remat``. The blocks draw no random numbers: no RNG state to restore."""
+    if not remat:
+        return block(x, True, stats)
+    out, block_stats = checkpoint(_block_with_stats, block, x, use_reentrant=False,
+                                  preserve_rng_state=False)
+    if stats is not None:
+        stats.extend(block_stats)
+    return out
 
 
 class Conv(nn.Module):

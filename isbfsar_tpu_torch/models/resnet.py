@@ -27,9 +27,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from isbfsar_tpu_torch.models.layers import BatchNorm, Conv
+from isbfsar_tpu_torch.models.layers import BatchNorm, Conv, train_block
 
 _EPS = 1e-5
 
@@ -91,13 +90,6 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-def _block_in_training(block: nn.Module, x: torch.Tensor):
-    """One block in training, returning its output and its BatchNorms'
-    batch statistics (the function a checkpoint recomputes)."""
-    stats = []
-    return block(x, True, stats), stats
-
-
 class ResNet(nn.Module):
     """(b, 3, s, s) -> (b, width * 2**(stages - 1) * block.expansion)
     float32 pooled features."""
@@ -125,14 +117,7 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.blocks:
             block = getattr(self, name)
-            if train and self.remat:
-                # the blocks draw no random numbers: no RNG state to restore
-                x, block_stats = checkpoint(_block_in_training, block, x, use_reentrant=False,
-                                            preserve_rng_state=False)
-                if stats is not None:
-                    stats.extend(block_stats)
-            else:
-                x = block(x, train, stats)
+            x = train_block(block, x, self.remat, stats) if train else block(x)
         # the mean accumulates in float32 and is rounded to the compute type,
         # as jnp.mean does for bfloat16
         return x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).to(torch.float32)

@@ -5,15 +5,24 @@ anchor heads. Input (b, 3, s, s) in [0, 1]; output boxes (b, N, 1, 4) and
 confs (b, N, 80) with N = 3 * ((s/8)^2 + (s/16)^2 + (s/32)^2) — 4032 at
 s = 256. Module names follow the Flax module tree, so the converted bundle
 loads with ``load_state_dict(strict=True)``.
+
+``forward(x, train=True, stats=...)`` is Flax's ``train=True`` with
+``mutable=["batch_stats"]`` (``models/layers.py::BatchNorm``); ``remat``
+recomputes each whole CSP stage of the backbone in the backward pass, as
+the JAX net's ``nn.remat(CSPStage)`` (the stage's inputs and outputs are
+kept anyway, and per-ResBlock remat would keep the down, route, trunk and
+merge activations, which dominate at slim widths).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from isbfsar_tpu_torch.models.layers import BatchNorm, Conv
+from isbfsar_tpu_torch.models.layers import BatchNorm, Conv, train_block
 
 ANCHORS = (
     ((12, 16), (19, 36), (40, 28)),  # stride 8
@@ -36,10 +45,10 @@ class ConvBlock(nn.Module):
         self.conv = Conv(cin, filters, kernel, stride, padding=(kernel - 1) // 2, bias=linear)
         self.bn = None if linear else BatchNorm(filters, 1e-4)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, train, stats)
         if self.act == "mish":
             x = F.mish(x)
         elif self.act == "leaky":
@@ -53,8 +62,8 @@ class ResBlock(nn.Module):
         self.conv1 = ConvBlock(cin, hidden, 1)
         self.conv2 = ConvBlock(hidden, out, 3)
 
-    def forward(self, x):
-        return x + self.conv2(self.conv1(x))
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
+        return x + self.conv2(self.conv1(x, train, stats), train, stats)
 
 
 class CSPStage(nn.Module):
@@ -73,19 +82,20 @@ class CSPStage(nn.Module):
         self.trunk_out = ConvBlock(split, split, 1)
         self.merge = ConvBlock(2 * split, filters, 1)
 
-    def forward(self, x):
-        x = self.down(x)
-        route = self.route(x)
-        y = self.trunk_in(x)
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
+        x = self.down(x, train, stats)
+        route = self.route(x, train, stats)
+        y = self.trunk_in(x, train, stats)
         for block in self.res:
-            y = block(y)
-        y = self.trunk_out(y)
-        return self.merge(torch.cat([y, route], dim=1))
+            y = block(y, train, stats)
+        y = self.trunk_out(y, train, stats)
+        return self.merge(torch.cat([y, route], dim=1), train, stats)
 
 
 class CSPDarknet53(nn.Module):
-    def __init__(self, width: float = 1.0):
+    def __init__(self, width: float = 1.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         c = lambda n: _scaled(n, width)
         deep = 1.0 if width == 1.0 else 0.25
         blocks = lambda n: max(1, int(round(n * deep)))
@@ -96,11 +106,14 @@ class CSPDarknet53(nn.Module):
         self.stage4 = CSPStage(c(256), c(512), blocks(8))
         self.stage5 = CSPStage(c(512), c(1024), blocks(4))
 
-    def forward(self, x):
-        x = self.stage2(self.stage1(self.stem(x)))
-        d3 = self.stage3(x)
-        d4 = self.stage4(d3)
-        return d3, d4, self.stage5(d4)
+    def forward(self, x, train: bool = False, stats: Optional[list] = None):
+        def stage(block, x):
+            return train_block(block, x, self.remat, stats) if train else block(x)
+
+        x = stage(self.stage2, stage(self.stage1, self.stem(x, train, stats)))
+        d3 = stage(self.stage3, x)
+        d4 = stage(self.stage4, d3)
+        return d3, d4, stage(self.stage5, d4)
 
 
 def _stack(owner: nn.Module, prefix: str, cin: int, filters) -> list:
@@ -115,9 +128,9 @@ def _stack(owner: nn.Module, prefix: str, cin: int, filters) -> list:
     return out
 
 
-def _run(x, stack):
+def _run(x, stack, train: bool = False, stats: Optional[list] = None):
     for m in stack:
-        x = m(x)
+        x = m(x, train, stats)
     return x
 
 
@@ -141,14 +154,17 @@ class Neck(nn.Module):
         self._p3 = _stack(self, "p3_", c(256), [(c(128), 1), (c(256), 3), (c(128), 1),
                                                 (c(256), 3), (c(128), 1)])
 
-    def forward(self, d3, d4, d5):
-        x = _run(d5, self._pre_spp)
+    def forward(self, d3, d4, d5, train: bool = False, stats: Optional[list] = None):
+        t = (train, stats)
+        x = _run(d5, self._pre_spp, *t)
         pools = [x] + [F.max_pool2d(x, k, 1, k // 2) for k in (5, 9, 13)]
-        p5 = _run(torch.cat(pools[::-1], dim=1), self._post_spp)
-        x = torch.cat([self.lat4(d4), _upsample2(self.p5_up(p5))], dim=1)
-        p4 = _run(x, self._p4)
-        x = torch.cat([self.lat3(d3), _upsample2(self.p4_up(p4))], dim=1)
-        return _run(x, self._p3), p4, p5
+        p5 = _run(torch.cat(pools[::-1], dim=1), self._post_spp, *t)
+        up = _upsample2(self.p5_up(p5, *t))
+        x = torch.cat([self.lat4(d4, *t), up], dim=1)
+        p4 = _run(x, self._p4, *t)
+        up = _upsample2(self.p4_up(p4, *t))
+        x = torch.cat([self.lat3(d3, *t), up], dim=1)
+        return _run(x, self._p3, *t), p4, p5
 
 
 def decode_scale(raw: torch.Tensor, anchors: torch.Tensor, scale_xy: float, input_size: int,
@@ -173,13 +189,14 @@ def decode_scale(raw: torch.Tensor, anchors: torch.Tensor, scale_xy: float, inpu
 
 
 class YOLOv4(nn.Module):
-    def __init__(self, n_classes: int = 80, width: float = 1.0, dtype=torch.bfloat16):
+    def __init__(self, n_classes: int = 80, width: float = 1.0, dtype=torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
         self.n_classes = n_classes
         self.dtype = dtype
         c = lambda n: _scaled(n, width)
         out_ch = 3 * (5 + n_classes)
-        self.backbone = CSPDarknet53(width)
+        self.backbone = CSPDarknet53(width, remat)
         self.neck = Neck(width)
         self.head1_conv = ConvBlock(c(128), c(256), 3, act="leaky")
         self.head1_out = ConvBlock(c(256), out_ch, 1, act="linear")
@@ -198,16 +215,17 @@ class YOLOv4(nn.Module):
         self.register_buffer("anchors", torch.tensor(ANCHORS, dtype=torch.float32),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False, stats: Optional[list] = None):
         input_size = x.shape[2]
+        t = (train, stats)
         x = x.to(self.dtype)
-        d3, d4, d5 = self.backbone(x)
-        p3, p4, p5 = self.neck(d3, d4, d5)
-        y1 = self.head1_out(self.head1_conv(p3))
-        z = _run(torch.cat([self.down4(p3), p4], dim=1), self._h4)
-        y2 = self.head2_out(self.head2_conv(z))
-        z2 = _run(torch.cat([self.down5(z), p5], dim=1), self._h5)
-        y3 = self.head3_out(self.head3_conv(z2))
+        d3, d4, d5 = self.backbone(x, *t)
+        p3, p4, p5 = self.neck(d3, d4, d5, *t)
+        y1 = self.head1_out(self.head1_conv(p3, *t), *t)
+        z = _run(torch.cat([self.down4(p3, *t), p4], dim=1), self._h4, *t)
+        y2 = self.head2_out(self.head2_conv(z, *t), *t)
+        z2 = _run(torch.cat([self.down5(z, *t), p5], dim=1), self._h5, *t)
+        y3 = self.head3_out(self.head3_conv(z2, *t), *t)
         all_boxes, all_confs = [], []
         for raw, anchors, sxy in zip((y1, y2, y3), self.anchors, SCALE_XY):
             bx, cf = decode_scale(raw, anchors, sxy, input_size, self.n_classes)

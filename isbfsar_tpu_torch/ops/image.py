@@ -7,11 +7,15 @@ fused step's square crop (:func:`center_square_crop_resize`, a gather on
 the device) and whitening (:func:`ar_rgb_preprocess`); and, for the
 module path's host crop, :func:`resize_linear_u8`, a numpy twin of cv2's
 ``INTER_LINEAR`` resize of uint8 images (the card's machine has no cv2).
+The synthetic trainers' host inputs, numpy twins of cv2 5.0.0 on uint8
+images: :func:`resize_area_u8` (``INTER_AREA`` downscale) and
+:func:`warp_affine_linear_u8` (``warpAffine`` at ``INTER_LINEAR``, border 0).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -153,6 +157,105 @@ def resize_linear_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     s1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
     y = ((s0 * b0[:, None, None]) >> 16) + ((s1 * b1[:, None, None]) >> 16)
     return np.clip((y + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _area_taps(src: int, dst: int):
+    """cv2's ``computeResizeAreaTab`` for a downscale of ``src`` to ``dst``,
+    as (k, dst) source indices and float32 weights: each output sample's
+    taps in cv2's order, padded with weight 0 (which adds an exact 0)."""
+    scale = 1.0 / (dst / src)
+    taps = []
+    for d in range(dst):
+        lo = d * scale
+        hi = lo + scale
+        cell = min(scale, src - lo)
+        s1, s2 = math.ceil(lo), math.floor(hi)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        t = []
+        if s1 - lo > 1e-3:
+            t.append((s1 - 1, (s1 - lo) / cell))
+        t += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if hi - s2 > 1e-3:
+            t.append((s2, min(min(hi - s2, 1.0), cell) / cell))
+        taps.append(t)
+    idx = np.zeros((max(map(len, taps)), dst), np.int64)
+    wgt = np.zeros(idx.shape, np.float32)
+    for d, t in enumerate(taps):
+        for k, (s, a) in enumerate(t):
+            idx[k, d], wgt[k, d] = s, a
+    return idx, wgt
+
+
+def resize_area_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(img, (out_w, out_h), interpolation=INTER_AREA) on (h, w, c)
+    uint8 for a downscale by a factor that is not a whole number: cv2's
+    float32 sums, along each row first (``buf += S * alpha`` in tap order),
+    then down the columns (``sum += beta * buf``), each product and sum
+    rounded to float32, and the result rounded half to even and saturated.
+    (A whole factor takes cv2's other, integer path, which this does not
+    follow.)"""
+    h, w = img.shape[:2]
+    xi, xw = _area_taps(w, out_w)
+    yi, yw = _area_taps(h, out_h)
+    src = img.astype(np.float32)
+    rows = src[:, xi[0]] * xw[0][:, None]
+    for k in range(1, len(xi)):
+        rows = rows + src[:, xi[k]] * xw[k][:, None]
+    out = rows[yi[0]] * yw[0][:, None, None]
+    for k in range(1, len(yi)):
+        out = out + rows[yi[k]] * yw[k][:, None, None]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _fma32(a: np.ndarray, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` with one rounding (the product is exact in float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_affine_linear_u8(img: np.ndarray, m: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """cv2.warpAffine(img, m, (out_w, out_h), flags=INTER_LINEAR) on (h, w, c)
+    uint8 with a constant border of 0, as cv2 5.0.0 computes it (in float32,
+    not in the fixed point of older releases): the 2x3 ``m`` is inverted in
+    double and rounded to float32; the source point of output pixel (x, y)
+    is ``fma(M0, x, y * M1 + M2)`` (and likewise for y); each of the four
+    neighbours outside the frame reads 0; the blend is
+    ``fma(a, p01 - p00, p00)`` along x, then the same along y, rounded half
+    to even and saturated."""
+    fwd = np.asarray(m, np.float64).reshape(6)
+    det = fwd[0] * fwd[4] - fwd[1] * fwd[3]
+    det = 1.0 / det if det != 0 else 0.0
+    inv = np.empty(6)
+    inv[0], inv[4] = fwd[4] * det, fwd[0] * det
+    inv[1], inv[3] = fwd[1] * -det, fwd[3] * -det
+    inv[2] = -inv[0] * fwd[2] - inv[1] * fwd[5]
+    inv[5] = -inv[3] * fwd[2] - inv[4] * fwd[5]
+    inv = inv.astype(np.float32)
+    xs = np.arange(out_w, dtype=np.float32)[None, :]
+    ys = np.arange(out_h, dtype=np.float32)[:, None]
+    shape = (out_h, out_w)
+    sx = _fma32(np.broadcast_to(xs, shape), inv[0], np.broadcast_to(ys * inv[1] + inv[2], shape))
+    sy = _fma32(np.broadcast_to(xs, shape), inv[3], np.broadcast_to(ys * inv[4] + inv[5], shape))
+    x0, y0 = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    h, w = img.shape[:2]
+    src = img.astype(np.float32)
+
+    def pixel(yy, xx):
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        return np.where(inside[..., None], v, np.float32(0))
+
+    p00, p01 = pixel(y0, x0), pixel(y0, x0 + 1)
+    p10, p11 = pixel(y0 + 1, x0), pixel(y0 + 1, x0 + 1)
+    ax, ay = np.broadcast_to(ax, p00.shape), np.broadcast_to(ay, p00.shape)
+    top = _fma32(ax, p01 - p00, p00)
+    bot = _fma32(ax, p11 - p10, p10)
+    out = _fma32(ay, bot - top, top)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def i420_to_bgr(yuv: torch.Tensor, height: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The full-width slice and the trained CI stack on one GPU, and where the time goes.
 
     python3 -m isbfsar_tpu_torch.profile_slice [--steps 5] [--trace PATH]
+    python3 -m isbfsar_tpu_torch.profile_slice --trainers [--steps 2]
 
 ``build_slice`` is the slice that ``chip_smoke.py`` drives and this module
 profiles: 640x480 I420, YOLOv4 @ 256, EfficientNetV2-L @ 256 crop, bf16,
@@ -28,7 +29,12 @@ kernel time per frame, the device busy share (kernel time over wall time),
 the kernel launches per frame and the kernels that take the most device
 time; for rgb and hybrid also the device ms per frame of the crop with its
 whitening and of the ResNet-50, each a CUDA graph of its own, at B=1 and
-B=16. Needs a CUDA device.
+B=16. With ``--trainers`` it profiles the synthetic pose trainers instead,
+at the production sizes of ``tools/train_posestack.py --production``
+(batch 8 on 480x640 frames): ``--steps`` warmed-up train steps of
+``YoloTrainer`` (width 1.0 at 256) and of ``HeatmapTrainer``
+(EfficientNetV2-L, a 256 crop), each step's device time, kernels and top
+kernels, beside the host sampler's time for a batch. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -193,9 +199,9 @@ def _device_events(prof):
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12):
+def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12, unit: str = "frame"):
     """Prints the window's numbers and top kernels; returns (device ms per
-    frame, kernels per frame)."""
+    ``unit``, kernels per ``unit``)."""
     events = _device_events(prof)
     if not events:
         raise RuntimeError("the profiler recorded no device time")
@@ -204,11 +210,11 @@ def _report(name: str, prof, wall_s: float, n_frames: int, top: int = 12):
     for e in events:
         per_kernel[e.name][0] += e.time_range.elapsed_us()
         per_kernel[e.name][1] += 1
-    print(f"[{name}] wall {wall_s / n_frames * 1e3:.3f} ms/frame, device {busy_us / n_frames / 1e3:.3f} "
-          f"ms/frame, busy share {busy_us / 1e6 / wall_s:.3f}, {len(events) / n_frames:.0f} "
-          f"kernels/frame")
+    print(f"[{name}] wall {wall_s / n_frames * 1e3:.3f} ms/{unit}, device "
+          f"{busy_us / n_frames / 1e3:.3f} ms/{unit}, busy share {busy_us / 1e6 / wall_s:.3f}, "
+          f"{len(events) / n_frames:.0f} kernels/{unit}")
     for kname, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"[{name}]   {us / busy_us * 100:5.1f}%  {us / n_frames / 1e3:8.4f} ms/frame  "
+        print(f"[{name}]   {us / busy_us * 100:5.1f}%  {us / n_frames / 1e3:8.4f} ms/{unit}  "
               f"x{count / n_frames:.0f}  {kname[:110]}")
     return busy_us / n_frames / 1e3, len(events) / n_frames
 
@@ -261,14 +267,52 @@ def rgb_stage_ms(pipe: FusedPipeline, frames: list) -> dict:
     return out
 
 
+def profile_trainers(steps: int = 2, batch: int = 8) -> None:
+    """``torch.profiler`` over ``steps`` warmed-up train steps of each
+    full-width pose trainer, batch ``batch`` on 480x640 frames, with the
+    host sampler's time per batch."""
+    from isbfsar_tpu_torch.models.effnetv2 import V2_L
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    hw, intr = ps.PROD_FRAME_HW, CameraIntrinsics()
+    norm = np.asarray([hw[1], hw[0], hw[1], hw[0]], np.float32)
+    for name, make_trainer, make_batch in (
+            ("YoloTrainer width 1.0 @256", lambda: ps.YoloTrainer(width=1.0, input_size=256),
+             lambda s: ps.detector_batch(s, batch, 256, norm, 0.12)),
+            ("HeatmapTrainer V2_L crop 256",
+             lambda: ps.HeatmapTrainer(intr, crop_size=256, stages=V2_L, huber_beta=0.02),
+             lambda s: ps.pose_batch(s, batch, 0.08))):
+        trainer, sampler = make_trainer(), ps.SyntheticHumanSampler(hw, intr, seed=0)
+        t = time.perf_counter()
+        batches = [make_batch(sampler) for _ in range(steps + 1)]
+        sample_ms = (time.perf_counter() - t) / (steps + 1) * 1e3
+        trainer.train_step(batches[0])  # warm-up: cuDNN's algorithm choice, allocations
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for b in batches[1:]:
+                trainer.train_step(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        _report(f"{name}, batch {batch}", prof, wall, steps, unit="step")
+        print(f"[{name}, batch {batch}] host sampler {sample_ms:.1f} ms/batch")
+        del trainer
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default="", help="write a Chrome trace of the graphs' step window here")
+    ap.add_argument("--trainers", action="store_true",
+                    help="profile the full-width synthetic pose trainers instead of the slice")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
+    if args.trainers:
+        profile_trainers(args.steps)
+        print(f"[profile] {torch.cuda.get_device_name(0)}")
+        return 0
     pipe = build_slice()
     clip = slice_frames()
     frames = [clip[i % len(clip)] for i in range(16)]

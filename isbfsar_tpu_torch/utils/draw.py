@@ -1,17 +1,21 @@
-"""A numpy rasterizer for the four OpenCV primitives the humanoid renderer
-draws, pixel for pixel as ``cv2`` 5.0.0 draws them with its defaults
+"""A numpy rasterizer for the OpenCV primitives the synthetic renderers
+draw, pixel for pixel as ``cv2`` 5.0.0 draws them with its defaults
 (``LINE_8``, shift 0), so that rendering needs no cv2:
 
 - :func:`rectangle`, filled (``cv2.rectangle(img, p1, p2, color, -1)``);
 - :func:`circle`, filled (``cv2.circle(img, center, radius, color, -1)``);
 - :func:`line` at any thickness (``cv2.line(img, p1, p2, color, thickness)``);
-- :func:`fill_convex_poly` (``cv2.fillConvexPoly(img, pts, color)``).
+- :func:`fill_convex_poly` (``cv2.fillConvexPoly(img, pts, color)``);
+- :func:`ellipse`, filled and whole (``cv2.ellipse(img, center, axes, 0, 0,
+  360, color, -1)``).
 
 Each follows OpenCV's own integer algorithm: a thick line is a quad in
 16-bit fixed point, filled scanline by scanline after its outline is
 drawn, with round caps drawn as filled circles; a polygon's outline is an
 8-connected Bresenham line clipped to the frame; a filled circle is the
-midpoint walk. The polygon fill does what OpenCV's does on a quad that is
+midpoint walk; a filled ellipse is the polygon of ``ellipse2Poly`` (cv2's
+float table of sines at whole degrees, a point every ``delta`` degrees)
+rounded to 16-bit fixed point and filled as a convex polygon. The polygon fill does what OpenCV's does on a quad that is
 not convex (a turning torso): it follows one left and one right chain from
 the top vertex. Colors are per-channel tuples (or a scalar); ``img`` is
 written in place.
@@ -21,11 +25,16 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import math
+
 import numpy as np
 
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
 HALF = XY_ONE >> 1
+# cv2's SinTable: float32 sines of 0..450 whole degrees, each written with
+# seven decimals
+_SIN_TABLE = np.asarray([round(math.sin(math.radians(k)), 7) for k in range(451)], np.float32)
 
 
 def _tdiv(a: int, b: int) -> int:
@@ -283,3 +292,31 @@ def line(img: np.ndarray, p1, p2, color, thickness: int = 1) -> None:
     cap = (half_t + HALF) >> XY_SHIFT
     for x, y in ((x1, y1), (x2, y2)):
         _circle(img, (x + HALF) >> XY_SHIFT, (y + HALF) >> XY_SHIFT, cap, color)
+
+
+def ellipse(img: np.ndarray, center, axes, color) -> None:
+    """``cv2.ellipse(img, center, axes, 0, 0, 360, color, -1)``: a whole,
+    filled, unrotated ellipse (LINE_8, shift 0). cv2's ``EllipseEx``: the
+    center and axes in XY_SHIFT fixed point, ``ellipse2Poly`` in double
+    from the float sine table with a step of 90, 30, 18 or 5 degrees by the
+    larger axis, each point rounded half to even, repeats dropped, then
+    the convex fill."""
+    cx, cy = int(center[0]) << XY_SHIFT, int(center[1]) << XY_SHIFT
+    aw, ah = abs(int(axes[0])) << XY_SHIFT, abs(int(axes[1])) << XY_SHIFT
+    step = (max(aw, ah) + HALF) >> XY_SHIFT
+    step = 90 if step < 3 else 30 if step < 10 else 18 if step < 15 else 5
+    pts = []
+    for i in range(0, 360 + step, step):
+        a = min(i, 360)
+        # the rotation by angle 0 is cos 1, sin 0: x - y * 0 and x * 0 + y
+        x = float(aw) * float(_SIN_TABLE[450 - a])
+        y = float(ah) * float(_SIN_TABLE[a])
+        px, py = cx + x - y * 0.0, cy + x * 0.0 + y
+        qx = round(px / XY_ONE) << XY_SHIFT
+        qy = round(py / XY_ONE) << XY_SHIFT
+        pt = (qx + round(px - qx), qy + round(py - qy))
+        if not pts or pts[-1] != pt:
+            pts.append(pt)
+    if len(pts) == 1:
+        pts = [(cx, cy), (cx, cy)]
+    _fill_poly(img, pts, _color(img, color), XY_SHIFT)

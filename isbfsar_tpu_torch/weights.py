@@ -22,6 +22,12 @@ The port's modules carry the Flax module names, so a leaf at
 :func:`to_flax_variables` maps a state dict back, and :func:`msgpack_dumps`
 writes a tree as Flax's ``serialization.to_bytes`` does, so the trainer's
 checkpoints read in either package.
+
+The bundle's registry (port of ``isbfsar_tpu/pretrained.py``):
+:func:`available` names the entries present, and :func:`verify` checks
+both ways that every manifest entry's file is the digest of its fixture's
+live cache key (the port's key builders, which give the JAX package's
+strings) and that every registered fixture is bundled.
 """
 
 from __future__ import annotations
@@ -29,14 +35,12 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from isbfsar_tpu_torch.configs import ASSETS_DIR
-
-BUNDLE_DIR = os.path.join(ASSETS_DIR, "pretrained")
+from isbfsar_tpu_torch.utils.cache import params_cache_digest, pretrained_bundle_dir
 
 _NDARRAY_EXT = 1
 _NPSCALAR_EXT = 3
@@ -150,28 +154,95 @@ def _refuse_chunked(tree) -> None:
             _refuse_chunked(v)
 
 
-def manifest(bundle_dir: str = BUNDLE_DIR) -> Dict[str, Dict[str, str]]:
-    with open(os.path.join(bundle_dir, "MANIFEST.json")) as f:
+def manifest(bundle_dir: Optional[str] = None) -> Dict[str, Dict[str, str]]:
+    """The bundle's MANIFEST.json; ``bundle_dir`` None is the shared bundle
+    (``utils/cache.py::pretrained_bundle_dir``, which honours
+    ``ISBFSAR_PRETRAINED_DIR``)."""
+    with open(os.path.join(bundle_dir or pretrained_bundle_dir(), "MANIFEST.json")) as f:
         return json.load(f)
 
 
-def bundle_path(name: str, bundle_dir: str = BUNDLE_DIR) -> str:
+def bundle_path(name: str, bundle_dir: Optional[str] = None) -> str:
     meta = manifest(bundle_dir).get(name)
     if meta is None:
         raise KeyError(f"no bundled pretrained entry {name!r}")
-    return os.path.join(bundle_dir, meta["file"])
+    return os.path.join(bundle_dir or pretrained_bundle_dir(), meta["file"])
 
 
-def load_bundle(name: str, bundle_dir: str = BUNDLE_DIR) -> Any:
+def load_bundle(name: str, bundle_dir: Optional[str] = None) -> Any:
     """Restore one bundle entry as a tree of CPU tensors."""
     with open(bundle_path(name, bundle_dir), "rb") as f:
         return msgpack_restore(f.read())
 
 
-def load_calibrated(base: str = "pose-prod-256", bundle_dir: str = BUNDLE_DIR) -> Any:
+def load_calibrated(base: str = "pose-prod-256", bundle_dir: Optional[str] = None) -> Any:
     """``base`` with its ``-calib`` detector delta merged over it (the delta
     holds only the YOLO branch), as ``isbfsar_tpu/pretrained.py::load_calibrated``."""
     return {**load_bundle(base, bundle_dir), **load_bundle(f"{base}-calib", bundle_dir)}
+
+
+class Spec(NamedTuple):
+    """A bundled trained fixture: its cache key, version and builder."""
+
+    key: Callable[[], str]  # the exact cached_params key (built lazily)
+    version: str
+    builder: Callable[[], Any]  # the fixture (trains on a miss)
+
+
+def _specs() -> Dict[str, Spec]:
+    # the trainers are imported here, not with this module: they import it
+    from isbfsar_tpu_torch.train import gazefocus as gf
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    return {
+        "pose-ci-motions": Spec(ps._CI_KEY_V[1], ps._CI_KEY_V[0], ps.ci_pose_params),
+        "pose-ci-diverse": Spec(ps._DIVERSE_KEY_V[1], ps._DIVERSE_KEY_V[0],
+                                ps.diverse_pose_params),
+        "pose-diverse-256": Spec(ps._DIVERSE256_KEY_V[1], ps._DIVERSE256_KEY_V[0],
+                                 ps.diverse_pose_params_256),
+        "focus-ci": Spec(gf._CI_FOCUS_KEY_V[1], gf._CI_FOCUS_KEY_V[0], gf.ci_focus_params),
+        "pose-prod-256": Spec(ps._PROD_KEY_V[1], ps._PROD_KEY_V[0], ps.prod_pose_params),
+        "pose-prod-256-calib": Spec(ps._PROD_CALIB_KEY_V[1], ps._PROD_CALIB_KEY_V[0],
+                                    ps.prod_detector_calib_delta),
+        "pose-ci-calib": Spec(ps._CI_CALIB_KEY_V[1], ps._CI_CALIB_KEY_V[0],
+                              ps.ci_detector_calib_delta),
+    }
+
+
+def _bundle_manifest() -> Dict[str, Dict[str, str]]:
+    """The shared bundle's manifest, empty where there is none."""
+    if not os.path.exists(os.path.join(pretrained_bundle_dir(), "MANIFEST.json")):
+        return {}
+    return manifest()
+
+
+def available() -> Dict[str, str]:
+    """name -> description of every manifest entry whose file is present."""
+    d = pretrained_bundle_dir()
+    return {name: meta.get("description", "") for name, meta in _bundle_manifest().items()
+            if os.path.exists(os.path.join(d, meta["file"]))}
+
+
+def verify() -> Dict[str, str]:
+    """name -> digest when the bundle and the registry agree both ways:
+    every manifest entry's file is the digest of its fixture's live key,
+    and every registered fixture is in the manifest. Raises naming the
+    stale and the unbundled entries otherwise."""
+    specs, manifest_ = _specs(), _bundle_manifest()
+    stale, out = [], {}
+    for name, meta in manifest_.items():
+        spec = specs.get(name)
+        digest = params_cache_digest(spec.key(), spec.version) if spec else None
+        if spec is None or f"{digest}.msgpack" != meta["file"]:
+            stale.append(name)
+        else:
+            out[name] = digest
+    unbundled = sorted(set(specs) - set(manifest_))
+    if stale or unbundled:
+        raise AssertionError(
+            f"pretrained bundle out of sync: stale entries {stale} (trainer keys or budgets "
+            f"moved since the bundle was built), specs missing from the manifest {unbundled}")
+    return out
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:

@@ -535,3 +535,46 @@ def test_remat_cuts_the_train_steps_peak_memory(cuda, tmp_path, mode):
     assert peak[True] <= REMAT_PEAK_RATIO * peak[False], peak
     for k, v in err.items():
         assert v <= TOL_REMAT[k], (k, v)
+
+
+@pytest.mark.parametrize("kind", ["yolo", "heatmap"])
+def test_synthetic_trainer_remat_equals_plain_on_card(cuda, kind):
+    """The YOLO trainer with remat per CSP stage and the heatmap trainer
+    with remat per MBConv, against the same trainers without, at the CI
+    size (batch 2, one init and batch, cuDNN deterministic): the
+    parameters and running stats after one step agree within
+    chip_smoke.TOL_REMAT (exactly)."""
+    from chip_smoke import TOL_REMAT, synth_batch, synth_remat_pair
+    from isbfsar_tpu_torch.models.effnetv2 import V2_TINY
+    from isbfsar_tpu_torch.train import posestack as ps
+
+    if kind == "yolo":
+        init = ps.YoloTrainer(width=0.25, input_size=128, device="cpu").variables
+        make = lambda remat: ps.YoloTrainer(width=0.25, input_size=128, variables=init,  # noqa
+                                            remat=remat, device="cuda")
+    else:
+        init = ps.HeatmapTrainer(ps.CI_INTRINSICS, crop_size=128, stages=V2_TINY,
+                                 device="cpu").variables
+        make = lambda remat: ps.HeatmapTrainer(ps.CI_INTRINSICS, crop_size=128,  # noqa
+                                               stages=V2_TINY, variables=init, remat=remat,
+                                               device="cuda")
+    _, peak, err, losses = synth_remat_pair(make, synth_batch(kind))
+    print(f"{kind}: peak {peak}, remat vs not {err}, losses {losses}")
+    assert losses[0] == losses[1] and np.isfinite(losses[0])
+    for k, v in err.items():
+        assert v <= TOL_REMAT[k], (k, v)
+
+
+def test_synthetic_trainer_steps_on_card_match_cpu(cuda):
+    """chip_smoke phase 11a: one CI-size step of each of the five synthetic
+    trainers on the card and on the CPU from one init and batch, within
+    that trainer's chip_smoke.TOL_SYNTH_TRAIN (the loss, the gradient, the
+    update and the running stats)."""
+    from chip_smoke import TOL_SYNTH_TRAIN, synth_step_errors
+
+    for kind, tol in TOL_SYNTH_TRAIN.items():
+        err = synth_step_errors(kind)
+        print(kind, err)
+        assert err["finite"], kind
+        for k, v in tol.items():
+            assert err[k] <= v, (kind, k, err[k])

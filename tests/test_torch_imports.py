@@ -13,7 +13,10 @@ read back, and one FSOS repeat; then rgb training: a train step with remat
 at a 32 crop, a PNG round trip, and a synthetic tree with PNG crops whose
 clip the rgb loader reads; then a rendered humanoid clip, the humanoid
 source, a 122-joint estimate with test-time augmentation, the extraction
-of a PNG clip, the full YOLO postprocessing and the offline One-Euro."""
+of a PNG clip, the full YOLO postprocessing and the offline One-Euro; then
+one step of each synthetic trainer (YOLO and heatmap with remat, the three
+focus trainers, the gaze crop through the plain geometry), a bundle hit of
+the parameter cache and the registry's ``verify``."""
 
 import os
 import subprocess
@@ -171,6 +174,33 @@ SCRIPT = textwrap.dedent(r"""
         dets, keep = postprocess_yolo(torch.rand(2, 100, 1, 4), torch.rand(2, 100, 80))
         assert dets.shape == (2, 64, 6) and keep.shape == (2, 64)
         assert np.array_equal(one_euro(np.ones((5, 3), np.float32)), np.ones((5, 3), np.float32))
+
+        # the synthetic trainers: one step of each at a tiny size, a bundle
+        # hit of the parameter cache and the registry's verify
+        from isbfsar_tpu_torch import weights
+        from isbfsar_tpu_torch.train import gazefocus as gf, posestack as ps
+        from isbfsar_tpu_torch.utils.cache import cached_params
+        sampler = ps.SyntheticHumanSampler((120, 160), intr, seed=0)
+        det = ps.YoloTrainer(width=0.25, input_size=64, remat=True, device="cpu")
+        norm = np.asarray([160, 120, 160, 120], np.float32)
+        assert np.isfinite(det.train_step(ps.detector_batch(sampler, 2, 64, norm, 0.5)))
+        pose = ps.HeatmapTrainer(intr, crop_size=64, stages=V2_TINY, remat=True, device="cpu")
+        assert np.isfinite(pose.train_step(ps.pose_batch(sampler, 2, 0.08)))
+        faces = gf.SyntheticFaceSampler((120, 160), seed=0)
+        cfg = dataclasses.replace(gf.CI_FOCUS_CFG, gaze_image_size=32)
+        assert np.isfinite(gf.BlazeFaceTrainer(cfg, device="cpu").train_step(
+            gf.face_detector_batch(faces, 2)))
+        assert np.isfinite(gf.LandmarkRefinerTrainer(cfg, device="cpu").train_step(
+            gf.refiner_batch(faces, 2)))
+        frames, lms, gazes = gf.gaze_batch(faces, 2, 0.005)
+        crops, r_norm = gf.make_normalized_crop_fn(cfg, intr, with_rnorm=True, device="cpu")(
+            frames, lms)
+        assert np.isfinite(gf.GazeTrainer(cfg, device="cpu").train_step(
+            {"crop": crops, "pitchyaw": gf.gaze_labels(gazes, r_norm)}))
+        os.environ["ISBFSAR_TORCH_PARAMS_CACHE"] = tmp + "/params_cache"
+        hit = cached_params(ps._CI_KEY_V[1](), lambda: 1 / 0, version=ps._CI_KEY_V[0])
+        assert set(hit) == {"yolo", "bbone", "head"} and not os.path.exists(tmp + "/params_cache")
+        assert len(weights.verify()) == 7
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
