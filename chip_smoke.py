@@ -162,12 +162,33 @@ Phases, each timed; any failure exits non-zero and prints no result:
    comparison, not counted); 11b launches it once per gaze batch and the
    I420 kernel never.
 
+12. the focus alternatives: (a) at the CI size in float32, the card
+   against the CPU from one seeded init, on 120x160 random frames and the
+   240x320 face frames: ``HeadDetector`` at 128, ``MutualGazeDetector``
+   (ResNet-18, a 64 crop) and ``HeadPoseDetector`` (a 64 crop) within
+   ``TOL_ALT`` (the box where the best anchor leads by more than
+   ``ALT_TIE``), the crop each device takes from one box equal; one step
+   of ``DetectorTrainer`` (input 64, batch 4, padding boxes) and of
+   ``MutualGazeTrainer`` (a 32 crop, batch 4) within ``TOL_ALT_TRAIN``
+   (as 11a); ``cross_validate`` on the card over a 2-session PNG tree
+   written by the port's codec, its best-F1 checkpoints read back; (b) at
+   full width on 640x480 BGR frames, eager and bf16 as JAX's:
+   ``MutualGazeDetector(MutualGazeConfig())`` (ResNet-18, 224 crop,
+   detector at 256), the same with ResNet-50 and ``HeadPoseDetector()``
+   (HopeNet on a ResNet-50, 224), each ``estimate``'s p50 over
+   ``ALT_FRAMES`` frames after a warm-up; ``DetectorTrainer`` at 256,
+   batch 4, and ``MutualGazeTrainer`` at ``MutualGazeConfig()``'s 224 crop
+   and batch 8 with each backbone, a warm-up and ``ALT_TIMED_STEPS``
+   timed steps (p50, fastest, slowest) and the peak memory; ``run_sweep``'s
+   first entry on a tiny 2-session tree at 224, 1 epoch, and its wall.
+   Neither kernel is on these paths: both counts must stay 0.
+
 The four weight files are required (``pose-ci-motions``, ``focus-ci``, the
 ``pose-prod-256-calib`` delta and ``pose-diverse-256``): a missing one
 fails the run; phase 11 reads no other.
 
 The ``[phases]`` line gives each phase's seconds, and the ``kernels``
-line each kernel's launches by path, the paths of phase 10 included. The
+line each kernel's launches by path, the paths of phases 10-12 included. The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
 """
@@ -403,6 +424,42 @@ SYNTH_BATCH = 8  # the tool's --batch default at --production
 SYNTH_TIMED_STEPS = 10  # each timed trainer's steps (3 swung their p50 by 30%)
 SYNTH_FIT_STEPS = 3  # finetune_detector's and train_focus_params' steps a phase
 SYNTH_EVAL = dict(n_scenes=4, n_empty=3, n_hard_empty=2)
+# Phase 12: the focus alternatives. (a) At the CI size in float32, the
+# card against the CPU from one seeded init: HeadDetector at 128,
+# MutualGazeDetector (ResNet-18, a 64 crop) and HeadPoseDetector (a 64
+# crop) on 120x160 random frames and the 240x320 face frames. On an H100
+# 80GB HBM3 at 700 W (the phase alone and its GPU test read the same) the
+# boxes read 3.05e-5 px (head detectors) and 8.39e-5 px (head pose), the
+# scores 7.2e-7, watching 6.0e-8, the angles 1.53e-5 degrees; the limits
+# are about four times that. Random weights leave the best anchor's lead
+# over its runner-up at 1e-5 to 1e-4 on many frames, and a lead under twice
+# the score difference may go either way: the box is compared where the
+# CPU's lead exceeds ALT_TIE (twice the score limit; a wider split fails
+# the score), and the crop each device takes from the CPU's box must be
+# equal on every frame (it was, on all 8 frames of each detector).
+TOL_ALT = {"box_px": 4e-4, "score": 3e-6, "watching": 3e-7, "angles_deg": 6e-5}
+ALT_TIE = 2 * TOL_ALT["score"]
+# One step of each trainer in float32 on the card against the CPU from one
+# init and batch, as 11a (loss, gradient and update as vectors, stats):
+# DetectorTrainer at input 64, batch 4 with padding boxes; MutualGazeTrainer
+# at a 32 crop, batch 4, its lr 1e-6. That card read, each limit about four
+# times its reading:
+#   detector  loss 3.6e-7  grad 2.7e-3  update 2.1e-2  stats 2.4e-7
+#   mutual    loss 2.0e-6  grad 6.3e-5  update 7.1e-3  stats 1.4e-6
+TOL_ALT_TRAIN = {
+    "detector": {"loss": 1.5e-6, "grad_l2": 1.1e-2, "update_l2": 8.4e-2, "stats": 1e-6},
+    "mutual": {"loss": 8e-6, "grad_l2": 2.5e-4, "update_l2": 3e-2, "stats": 5.5e-6},
+}
+# (b) At full width on 640x480 BGR frames, eager, bf16 as JAX's: each
+# detector's estimate p50 over ALT_FRAMES frames after a warm-up; each
+# trainer one warm-up step and ALT_TIMED_STEPS timed steps; run_sweep's
+# first entry (ResNet-50, a 224 crop) on a 2-session tree of ALT_SWEEP_PER
+# crops a label and session, 1 epoch. Cut from a session's hundreds of
+# crops and 1000 epochs (MutualGazeConfig.n_epochs) to fit the run.
+ALT_FRAMES = 20
+ALT_TIMED_STEPS = 10
+ALT_DET_BATCH = 4
+ALT_SWEEP_PER = 4
 
 
 def log(msg: str) -> None:
@@ -1834,7 +1891,12 @@ def synth_batch(kind: str) -> dict:
 def synth_state(trainer) -> tuple:
     """(parameters, Adam's first moments, running stats) of a trainer, as
     CPU float64 tensors in its optimizer's order (the stats by name)."""
-    mods = ([trainer.bbone, trainer.head] if hasattr(trainer, "bbone") else [trainer.net])
+    if hasattr(trainer, "bbone"):
+        mods = [trainer.bbone, trainer.head]
+    elif hasattr(trainer, "backbone"):
+        mods = [trainer.backbone, trainer.head]
+    else:
+        mods = [trainer.net]
     stats = {f"{i}.{k}": v.detach().double().cpu() for i, m in enumerate(mods)
              for k, v in m.state_dict().items() if k.endswith((".mean", ".var"))}
     opt = trainer.optimizer
@@ -2112,6 +2174,322 @@ def run_synth(card: str) -> dict:
             "synthetic trainers at full width (11b)": counts}
 
 
+def alt_small_frames() -> list:
+    """Phase 12a: 120x160 random frames and the 240x320 face frames, BGR."""
+    from isbfsar_tpu_torch.profile_slice import focus_frames
+
+    rng = np.random.default_rng(12)
+    out = [rng.integers(0, 256, (120, 160, 3), np.uint8) for _ in range(3)]
+    return out + [torch.round(i420_to_bgr(torch.from_numpy(f), 240)).to(torch.uint8).numpy()
+                  for f in focus_frames(240)["i420"]]
+
+
+def alt_detectors(device: str) -> dict:
+    """Phase 12a: the three detectors at the CI size in float32, seed 0."""
+    from isbfsar_tpu_torch.configs import FocusConfig, MutualGazeConfig
+    from isbfsar_tpu_torch.focus import HeadDetector, HeadPoseDetector, MutualGazeDetector
+
+    f32 = torch.float32
+    return {"HeadDetector": HeadDetector(MutualGazeConfig(), input_size=128, device=device,
+                                         dtype=f32),
+            "MutualGazeDetector": MutualGazeDetector(MutualGazeConfig(crop_size=64),
+                                                     device=device, dtype=f32),
+            "HeadPoseDetector": HeadPoseDetector(FocusConfig(compute_dtype="float32"),
+                                                 crop_size=64, device=device)}
+
+
+def alt_detector_errors() -> dict:
+    """Phase 12a: each detector on the card against the CPU, frame by frame:
+    the largest difference of each output, the box where the CPU's best
+    anchor leads by more than ALT_TIE, and the crops each device takes from
+    the CPU's box (pixels that differ)."""
+    from isbfsar_tpu_torch.ops.image import square_box_crop_gather
+
+    frames = alt_small_frames()
+    cpu, card = alt_detectors("cpu"), alt_detectors("cuda")
+    out = {}
+    for name in cpu:
+        err = {"box_px": 0.0, "score": 0.0, "watching": 0.0, "angles_deg": 0.0,
+               "crop_px_differ": 0, "tied": 0}
+        for f in frames:
+            a = cpu[name]._forward_impl(torch.from_numpy(f))
+            b = {k: v.cpu() for k, v in card[name]._forward_impl(
+                torch.from_numpy(f).cuda()).items()}
+            err["score"] = max(err["score"], abs(float(a["score"]) - float(b["score"])))
+            lead = alt_lead(cpu[name], f)
+            if lead > ALT_TIE:
+                err["box_px"] = max(err["box_px"], float((a["box"] - b["box"]).abs().max()))
+            else:
+                err["tied"] += 1
+            if "watching" in a:
+                err["watching"] = max(err["watching"],
+                                      abs(float(a["watching"]) - float(b["watching"])))
+            if "angles" in a:
+                err["angles_deg"] = max(err["angles_deg"],
+                                        float((a["angles"] - b["angles"]).abs().max()))
+            if "crop" in a:
+                size = a["crop"].shape[0]
+                same = square_box_crop_gather(torch.from_numpy(f).cuda(), a["box"].cuda(), size)
+                err["crop_px_differ"] += int((same.cpu() != a["crop"]).any(-1).sum())
+        out[name] = err
+    torch.cuda.synchronize()
+    return out
+
+
+@torch.inference_mode()
+def alt_lead(det, frame: np.ndarray) -> float:
+    """The CPU detector's best score minus its runner-up's on ``frame``."""
+    from isbfsar_tpu_torch.focus.detector import resize_linear
+
+    f = torch.from_numpy(frame).to(torch.float32)
+    if hasattr(det, "net"):
+        net, size = det.net, det.input_size
+    elif "detector" in det.nets:
+        net, size = det.nets["detector"], 256
+    else:
+        net, size = det.nets["face_det"], 128
+    x = (resize_linear(f[None], size, size).flip(-1) / 255.0).permute(0, 3, 1, 2)
+    scores = net(x)[-1][0]
+    top = torch.topk(scores, 2).values
+    return float(top[0] - top[1])
+
+
+def alt_trainer(kind: str, device: str, variables=None, log_dir: Optional[str] = None):
+    """Phase 12a: the CI-size float32 trainer of ``kind`` on ``device``."""
+    from isbfsar_tpu_torch.configs import MutualGazeConfig
+    from isbfsar_tpu_torch.train.detection import DetectorTrainer
+    from isbfsar_tpu_torch.train.mutualgaze import MutualGazeTrainer
+
+    if kind == "detector":
+        return DetectorTrainer(MutualGazeConfig(), input_size=64, dtype=torch.float32,
+                               variables=variables, device=device)
+    trainer = MutualGazeTrainer(MutualGazeConfig(crop_size=32), log_dir=log_dir, device=device,
+                                dtype=torch.float32)
+    if variables is not None:
+        trainer.reset(0, variables=variables)
+    return trainer
+
+
+def alt_batch(kind: str, size: int, batch: int, seed: int = 1):
+    """A seeded batch: the detector's images with 1 to 3 valid boxes of 4
+    slots (the rest zero padding); the mutual-gaze trainer's crops and
+    labels."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 1, (batch, size, size, 3)).astype(np.float32)
+    if kind != "detector":
+        return images, (np.arange(batch) % 2).astype(np.float32)
+    boxes = np.zeros((batch, 4, 4), np.float32)
+    valid = np.zeros((batch, 4), bool)
+    for i in range(batch):
+        n = 1 + i % 3
+        xy = rng.uniform(0.05, 0.6, (n, 2))
+        boxes[i, :n] = np.concatenate([xy, xy + rng.uniform(0.1, 0.35, (n, 2))], -1)
+        valid[i, :n] = True
+    return {"image": images, "boxes": boxes, "valid": valid}
+
+
+def alt_step(trainer, b) -> float:
+    return trainer.train_step(b) if isinstance(b, dict) else trainer.train_step(*b)
+
+
+def alt_step_errors(kind: str, root: str) -> dict:
+    """Phase 12a: one CI-size step of ``kind`` on the card against the CPU
+    from one init and batch (as ``synth_step_errors``)."""
+    logs = {d: os.path.join(root, f"{kind}_{d}") for d in ("cpu", "cuda")}
+    cpu = alt_trainer(kind, "cpu", log_dir=logs["cpu"])
+    card = alt_trainer(kind, "cuda", variables=cpu.variables, log_dir=logs["cuda"])
+    p0 = synth_state(cpu)[0]
+    b = alt_batch(kind, 64 if kind == "detector" else 32, 4)
+    loss = {"cpu": alt_step(cpu, b), "card": alt_step(card, b)}
+    (p_cpu, mu_cpu, st_cpu), (p_card, mu_card, st_card) = synth_state(cpu), synth_state(card)
+    for trainer in (cpu, card):
+        if hasattr(trainer, "logger"):
+            trainer.logger.close()
+    return {"loss": abs(loss["cpu"] - loss["card"]),
+            "grad_l2": rel_l2(mu_card, mu_cpu),
+            "update_l2": rel_l2([a - o for a, o in zip(p_card, p0)],
+                                [a - o for a, o in zip(p_cpu, p0)]),
+            "stats": max(float((st_card[k] - v).abs().max()) for k, v in st_cpu.items()),
+            "finite": bool(np.isfinite(loss["card"]))}
+
+
+def write_watching_tree(root: str, size: int, n_per: int, seed: int = 0) -> None:
+    """root/<s0|s1>/<0|1>/<i>.png through the port's PNG writer: label 1
+    bright, label 0 dark, with noise."""
+    from isbfsar_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    for session in ("s0", "s1"):
+        for label in (0, 1):
+            d = os.path.join(root, session, str(label))
+            os.makedirs(d, exist_ok=True)
+            for i in range(n_per):
+                img = np.clip(40 + 180 * label + rng.normal(0, 20, (size, size, 3)), 0, 255)
+                write_png(os.path.join(d, f"{i}.png"), img.astype(np.uint8))
+
+
+def alt_cross_validate(root: str) -> dict:
+    """Phase 12a: cross_validate on the card over a 2-session PNG tree
+    (crop 32, 2 epochs, lr 1e-3), each fold's best-F1 checkpoint read back
+    against the trainer's tree."""
+    from isbfsar_tpu_torch.configs import MutualGazeConfig
+    from isbfsar_tpu_torch.train.mutualgaze import MutualGazeTrainer
+    from isbfsar_tpu_torch.utils.checkpoint import load_checkpoint
+
+    write_watching_tree(os.path.join(root, "tree"), 40, 2)
+    trainer = MutualGazeTrainer(MutualGazeConfig(crop_size=32, lr=1e-3),
+                                log_dir=os.path.join(root, "cv_log"), device="cuda")
+    results = trainer.cross_validate(os.path.join(root, "tree"), n_epochs=2, batch_size=4,
+                                     ckpt_dir=os.path.join(root, "cv_ckpt"))
+    trainer.logger.close()
+    template = weights_template(trainer.variables)
+    back = [load_checkpoint(os.path.join(root, "cv_ckpt", f"{fold}.msgpack"), template)
+            for fold in range(len(results))]
+    finite = all(bool(torch.isfinite(x).all()) for tree in back for x in _leaves(tree))
+    return {"folds": results, "checkpoints": len(back), "finite": finite}
+
+
+def weights_template(tree):
+    return {k: weights_template(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
+def alt_estimate_ms(det, frames: list) -> list:
+    """Seconds of each ``estimate`` (eager; host frame in, host result out)
+    after one warm-up call."""
+    det.estimate(frames[0])
+    torch.cuda.synchronize()
+    return timed(det.estimate, frames)[1]
+
+
+def alt_timed_steps(trainer, b, n: int) -> dict:
+    """One warm-up step, then n timed steps on one batch, the card
+    synchronised around each; the peak memory above what was held before
+    the timed steps."""
+    losses = [alt_step(trainer, b)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step_s = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(alt_step(trainer, b))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    return {"step_s": step_s, "losses": losses,
+            "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+
+
+def run_focus_alt_full(root: str) -> dict:
+    """Phase 12b: the detectors' estimate and the trainers' steps at full
+    width (bf16, as JAX's), and run_sweep's first entry."""
+    from isbfsar_tpu_torch.configs import MutualGazeConfig
+    from isbfsar_tpu_torch.focus import HeadPoseDetector, MutualGazeDetector
+    from isbfsar_tpu_torch.train.detection import DetectorTrainer
+    from isbfsar_tpu_torch.train.mutualgaze import MutualGazeTrainer
+    from isbfsar_tpu_torch.train.sweep import default_grid, run_sweep
+
+    frames = bgr_frames()
+    frames = [frames[i % len(frames)] for i in range(ALT_FRAMES)]
+    out = {"estimate": {}, "train": {}}
+    for name, det in (
+            ("MutualGazeDetector(MutualGazeConfig()) ResNet-18", MutualGazeDetector(
+                MutualGazeConfig(), device="cuda")),
+            ("MutualGazeDetector ResNet-50", MutualGazeDetector(
+                MutualGazeConfig(backbone="resnet50"), device="cuda")),
+            ("HeadPoseDetector() 224 bf16", HeadPoseDetector(device="cuda"))):
+        out["estimate"][name] = alt_estimate_ms(det, frames)
+        del det
+    trainer = DetectorTrainer(MutualGazeConfig(), input_size=256, device="cuda")
+    out["train"][f"DetectorTrainer @256 batch {ALT_DET_BATCH}"] = alt_timed_steps(
+        trainer, alt_batch("detector", 256, ALT_DET_BATCH), ALT_TIMED_STEPS)
+    del trainer
+    cfg = MutualGazeConfig()
+    for backbone in ("resnet18", "resnet50"):
+        trainer = MutualGazeTrainer(MutualGazeConfig(backbone=backbone),
+                                    log_dir=os.path.join(root, f"mg_{backbone}"), device="cuda")
+        out["train"][f"MutualGazeTrainer {backbone} crop {cfg.crop_size} batch "
+                     f"{cfg.batch_size}"] = alt_timed_steps(
+            trainer, alt_batch("mutual", cfg.crop_size, cfg.batch_size), ALT_TIMED_STEPS)
+        trainer.logger.close()
+        del trainer
+    write_watching_tree(os.path.join(root, "sweep", "focus_dataset"), cfg.crop_size,
+                        ALT_SWEEP_PER)
+    t = time.perf_counter()
+    out["sweep"] = run_sweep(os.path.join(root, "sweep"), grid=default_grid(), n_epochs=1,
+                             batch_size=cfg.batch_size, log_dir=os.path.join(root, "sweep_log"),
+                             device="cuda")
+    torch.cuda.synchronize()
+    out["sweep_s"] = time.perf_counter() - t
+    return out
+
+
+def run_focus_alt(card: str) -> dict:
+    """Phase 12: the focus alternatives; returns each path's kernel launches."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_alt_")
+    try:
+        zero_launches()
+        t = time.perf_counter()
+        dets = alt_detector_errors()
+        steps = {kind: alt_step_errors(kind, root) for kind in TOL_ALT_TRAIN}
+        cv = alt_cross_validate(root)
+        counts_small = launches()
+        log(f"[alt] 12a in {time.perf_counter() - t:.1f} s")
+        zero_launches()
+        t = time.perf_counter()
+        full = run_focus_alt_full(root)
+        counts = launches()
+        log(f"[alt] 12b in {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    for name, e in dets.items():
+        log(f"[alt] {name} CI size float32, card vs CPU on {len(alt_small_frames())} frames: "
+            + " ".join(f"{k}={e[k]:.3g}" for k in TOL_ALT)
+            + f"; frames whose best anchor leads by {ALT_TIE:g} or less (box not compared): "
+            f"{e['tied']}; crop pixels that differ from the CPU's box: {e['crop_px_differ']} "
+            f"(limits {TOL_ALT})")
+    for kind, e in steps.items():
+        log(f"[alt] {kind} trainer one CI-size step, card vs CPU: "
+            + " ".join(f"{k}={e[k]:.3g} (limit {v:g})" for k, v in TOL_ALT_TRAIN[kind].items()))
+    log(f"[alt] cross_validate on the card, 2 sessions, 2 epochs: folds {cv['folds']}; "
+        f"{cv['checkpoints']} best-F1 checkpoints read back, finite {cv['finite']}")
+    for name, lat in full["estimate"].items():
+        log(f"[alt] {name} estimate on {ALT_FRAMES} 640x480 BGR frames, eager: "
+            f"{spread_ms(lat)}; {card}")
+    for name, r in full["train"].items():
+        log(f"[alt] {name}: {ALT_TIMED_STEPS} steps after a warm-up: train step "
+            f"{spread_ms(r['step_s'])} (the card synchronised around each); peak memory above "
+            f"what was held {r['peak_gib']:.2f} GiB; losses {r['losses']}; {card}")
+    log(f"[alt] run_sweep (first entry, ResNet-50 crop 224, 2 sessions of "
+        f"{2 * ALT_SWEEP_PER} crops, 1 epoch) in {full['sweep_s']:.1f} s: {full['sweep']}; "
+        f"{card}")
+    log(f"[alt] launches in 12a {counts_small}, in 12b {counts}")
+
+    over = [f"{name} {k} {e[k]} > {v}" for name, e in dets.items()
+            for k, v in TOL_ALT.items() if not e[k] <= v]
+    over += [f"{name}: {e['crop_px_differ']} crop pixels differ" for name, e in dets.items()
+             if e["crop_px_differ"]]
+    over += [f"{kind} {k} {e[k]} > {v}" for kind, e in steps.items()
+             for k, v in TOL_ALT_TRAIN[kind].items() if not e[k] <= v]
+    over += [f"{kind}: a non-finite loss" for kind, e in steps.items() if not e["finite"]]
+    if not cv["finite"] or cv["checkpoints"] != 2:
+        over.append(f"cross_validate checkpoints: {cv['checkpoints']}, finite {cv['finite']}")
+    for name, r in full["train"].items():
+        if not all(np.isfinite(r["losses"])):
+            over.append(f"{name}: a non-finite loss {r['losses']}")
+    if list(full["sweep"]) != ["RNET MARIA SMALL"]:
+        over.append(f"run_sweep ran {list(full['sweep'])}")
+    if over:
+        raise AssertionError("focus alternatives: " + "; ".join(over))
+    # neither kernel is on these paths: no I420 input, and the head pose
+    # comes from HopeNet's bins, not the Procrustes solve
+    check_launches("focus alternatives, CI size", counts_small, 0)
+    check_launches("focus alternatives at full width", counts, 0)
+    return {"focus alternatives, CI size, card vs CPU (12a)": counts_small,
+            "focus alternatives at full width (12b)": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -2165,6 +2543,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_synth(card))
     phases["synth"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path.update(run_focus_alt(card))
+    phases["focus_alt"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

@@ -134,9 +134,13 @@ class ARConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FocusConfig:
-    """Gaze-based focus detection. The nets have fixed widths; only the
-    gaze crop size and the compute type vary."""
+    """Focus detection: the fields and their order are the JAX package's,
+    so ``repr`` gives its string (the ``focus-ci`` cache key embeds it).
+    ``mode`` and ``checkpoint_dir`` are read by nothing, as in JAX; the nets
+    have fixed widths, and only the gaze crop size and the compute type
+    vary."""
 
+    mode: str = "gaze"  # "gaze" | "mutual"
     area_thr: float = 0.03  # face bbox area fraction above which the human is "close"
     close_thr: float = -0.95  # close: normalized gaze z below this is focus
     dist_thr: float = 0.3  # far: |normalized head rot y| under this is focus
@@ -144,7 +148,22 @@ class FocusConfig:
     patience: int = 3  # majority vote over the last N observations
     gaze_image_size: int = 224
     normalized_camera_distance: float = 0.6
+    checkpoint_dir: Optional[str] = None
     compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class MutualGazeConfig:
+    """The mutual-gaze focus head (``focus/mutual.py``) and its trainers."""
+
+    backbone: str = "resnet18"  # "resnet18" | "resnet50" | "mobilenet" (-> resnet18)
+    crop_size: int = 224
+    score_thr: float = 0.8
+    nms_thr: float = 0.01
+    batch_size: int = 8
+    lr: float = 1e-6
+    n_epochs: int = 1000
+    checkpoint_dir: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)

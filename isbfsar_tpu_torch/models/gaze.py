@@ -7,6 +7,9 @@
   landmarks in crop-normalized [0, 1] coordinates.
 * :class:`GazeNet`: ResNet-18 -> Dense(2), a normalized face crop ->
   (pitch, yaw) radians.
+* :class:`HopeNet`: ResNet-50 -> three 66-bin heads, a square face crop ->
+  (yaw, pitch, roll) degrees (the head-pose alternative,
+  ``focus/head_pose.py``).
 
 The modules keep the Flax module names, so ``weights.convert_focus``
 maps the bundle's keys one to one. Each net computes in ``dtype``; the
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from isbfsar_tpu_torch.models.layers import BatchNorm, Conv
-from isbfsar_tpu_torch.models.resnet import resnet18
+from isbfsar_tpu_torch.models.resnet import resnet18, resnet50
 
 _EPS = 1e-5  # Flax's BatchNorm default
 
@@ -54,6 +57,31 @@ class GazeNet(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats: Optional[list] = None) -> torch.Tensor:
         return self.gaze_fc(self.ResNet_0(x, train, stats))
+
+
+class HopeNet(nn.Module):
+    """(b, 3, s, s) RGB in [0, 1] -> (b, 3) (yaw, pitch, roll) degrees: a
+    ResNet-50, then per angle a float32 Dense to 66 bins, a softmax and the
+    bin expectation ``* 3 - 99`` (3-degree bins over [-99, 99])."""
+
+    n_bins = 66
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.ResNet_0 = resnet50(dtype)
+        for name in ("yaw", "pitch", "roll"):
+            setattr(self, f"fc_{name}", nn.Linear(2048, self.n_bins))
+        self.register_buffer("bins", torch.arange(self.n_bins, dtype=torch.float32),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[list] = None) -> torch.Tensor:
+        feats = self.ResNet_0(x, train, stats)
+        angles = []
+        for name in ("yaw", "pitch", "roll"):
+            probs = torch.softmax(getattr(self, f"fc_{name}")(feats).to(torch.float32), dim=-1)
+            angles.append((probs * self.bins).sum(dim=-1) * 3.0 - 99.0)
+        return torch.stack(angles, dim=-1)
 
 
 class LandmarkRefiner(nn.Module):

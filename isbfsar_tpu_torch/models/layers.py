@@ -5,9 +5,10 @@
   running averages, in one ``F.batch_norm`` kernel; in training (``train=True``,
   Flax's ``use_running_average=False``) with the batch's mean and biased
   variance ``E[x²] - E[x]²`` (Flax's fast variance, clamped at 0). The
-  running averages move only through :meth:`BatchNorm.update`, by momentum
-  0.9 with that same biased variance (torch's own update would take the
-  unbiased one).
+  running averages move only through :meth:`BatchNorm.update`, by its
+  ``momentum`` (``BN_MOMENTUM`` = 0.9 unless the net says otherwise) with
+  that same biased variance (torch's own update would take the unbiased
+  one).
 * :class:`Conv` takes the compute dtype of its input and casts its stored
   weights to it, as a Flax ``nn.Conv(dtype=...)`` does; ``padding="SAME"``
   pads like XLA (for stride 2 on even sizes: 0 before, 1 after).
@@ -38,16 +39,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 
-# the running averages' momentum in training: every BatchNorm of the JAX
-# nets that train uses 0.9 (JAX models/resnet.py:98-100, yolov4.py:55,
-# effnetv2.py:91 and :143, gaze.py:84 and :130), not Flax's default 0.99
+# the running averages' default momentum in training: the JAX nets' BatchNorms
+# pass 0.9 (JAX models/resnet.py:98-100, yolov4.py:55, effnetv2.py:91 and
+# :143, gaze.py:84 and :130); the head detector's trunk keeps Flax's default
+# (JAX models/detection.py:56, ``FLAX_BN_MOMENTUM``)
 BN_MOMENTUM = 0.9
+FLAX_BN_MOMENTUM = 0.99
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, channels: int, eps: float):
+    def __init__(self, channels: int, eps: float, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -75,8 +79,8 @@ class BatchNorm(nn.Module):
     def update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Move the running averages toward one batch's statistics, as Flax's
         ``batch_stats`` update does."""
-        self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mean)
-        self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+        self.mean.copy_(self.momentum * self.mean + (1.0 - self.momentum) * mean)
+        self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
 
 
 def update_running_stats(stats: list) -> None:

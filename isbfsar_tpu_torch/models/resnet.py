@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from isbfsar_tpu_torch.models.layers import BatchNorm, Conv, train_block
+from isbfsar_tpu_torch.models.layers import BN_MOMENTUM, BatchNorm, Conv, train_block
 
 _EPS = 1e-5
 
@@ -36,15 +36,15 @@ _EPS = 1e-5
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int = 1):
+    def __init__(self, cin: int, filters: int, stride: int = 1, momentum: float = BN_MOMENTUM):
         super().__init__()
         self.conv1 = Conv(cin, filters, 3, stride, padding=1, bias=False)
-        self.bn1 = BatchNorm(filters, _EPS)
+        self.bn1 = BatchNorm(filters, _EPS, momentum)
         self.conv2 = Conv(filters, filters, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(filters, _EPS)
+        self.bn2 = BatchNorm(filters, _EPS, momentum)
         if stride != 1 or cin != filters:
             self.downsample_conv = Conv(cin, filters, 1, stride, bias=False)
-            self.downsample_bn = BatchNorm(filters, _EPS)
+            self.downsample_bn = BatchNorm(filters, _EPS, momentum)
         else:
             self.downsample_conv = None
 

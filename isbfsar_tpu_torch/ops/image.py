@@ -7,6 +7,7 @@ fused step's square crop (:func:`center_square_crop_resize`, a gather on
 the device) and whitening (:func:`ar_rgb_preprocess`); and, for the
 module path's host crop, :func:`resize_linear_u8`, a numpy twin of cv2's
 ``INTER_LINEAR`` resize of uint8 images (the card's machine has no cv2).
+The focus alternatives' head crop: :func:`square_box_crop_gather`.
 The synthetic trainers' host inputs, numpy twins of cv2 5.0.0 on uint8
 images: :func:`resize_area_u8` (``INTER_AREA`` downscale) and
 :func:`warp_affine_linear_u8` (``warpAffine`` at ``INTER_LINEAR``, border 0).
@@ -19,6 +20,8 @@ import math
 
 import numpy as np
 import torch
+
+from isbfsar_tpu_torch.ops.warp import to_int32
 
 IMAGENET_SCALE = (0.229, 0.224, 0.225)
 IMAGENET_SHIFT = (0.485, 0.456, 0.406)
@@ -107,6 +110,28 @@ def center_square_crop_resize(img: torch.Tensor, box, out: int = 224) -> torch.T
     xs = torch.clamp(x_lo[:, None] + steps, 0, w - 1).long()
     rows = torch.arange(img.shape[0], device=img.device)[:, None, None]
     return img[rows, ys[:, :, None], xs[:, None, :]]
+
+
+def square_box_crop_gather(frame: torch.Tensor, box: torch.Tensor, size: int) -> torch.Tensor:
+    """A square around a pixel box, sampled at ``size`` x ``size`` nearest
+    points: (H, W, C) frame and a float32 (4,) box (x1, y1, x2, y2) on the
+    device -> (size, size, C) float32. The head crop of ``focus/mutual.py``
+    and ``focus/head_pose.py``.
+
+    JAX's float32 arithmetic in its order: center ``(x1 + x2) / 2``, half
+    side ``max(max(x2 - x1, y2 - y1) / 2, 1)``, sample ``i`` at ``(c - half)
+    + (i + 0.5) * (2 * half / size)``, clipped to the frame and truncated
+    (``ops/warp.py::to_int32``, XLA's rule). No host value: a graph holds it."""
+    h, w = frame.shape[0], frame.shape[1]
+    x1, y1, x2, y2 = box[0], box[1], box[2], box[3]
+    cx = (x1 + x2) / 2.0
+    cy = (y1 + y2) / 2.0
+    half = torch.clamp(torch.maximum(x2 - x1, y2 - y1) / 2.0, min=1.0)
+    step = 2.0 * half / size
+    t = torch.arange(size, dtype=torch.float32, device=frame.device) + 0.5
+    xs = to_int32(torch.clamp((cx - half) + t * step, 0, w - 1)).long()
+    ys = to_int32(torch.clamp((cy - half) + t * step, 0, h - 1)).long()
+    return frame[ys[:, None], xs[None, :]].to(torch.float32)
 
 
 def _linear_taps(src: int, dst: int):

@@ -352,15 +352,9 @@ CI_FOCUS_BUDGETS = dict(n_steps_det=150, n_steps_gaze=150, n_steps_lm=600,
 
 def focus_config_key_repr(config: FocusConfig) -> str:
     """The repr of the JAX package's ``FocusConfig`` with ``config``'s
-    values: its fields the port's config lacks, ``mode`` and
-    ``checkpoint_dir``, at their defaults and in their places, so that the
-    cache key is the JAX package's string."""
-    f = dataclasses.asdict(config)
-    fields = [("mode", "gaze")]
-    fields += [(k, f[k]) for k in ("area_thr", "close_thr", "dist_thr", "foc_rot_thr", "patience",
-                                   "gaze_image_size", "normalized_camera_distance")]
-    fields += [("checkpoint_dir", None), ("compute_dtype", f["compute_dtype"])]
-    return "FocusConfig(" + ", ".join(f"{k}={v!r}" for k, v in fields) + ")"
+    values: the port's config has JAX's fields in JAX's order, so this is
+    its own repr, and the cache key is the JAX package's string."""
+    return repr(config)
 
 
 _CI_FOCUS_KEY_V = ("1", lambda: (f"gazefocus:{focus_config_key_repr(CI_FOCUS_CFG)}:"

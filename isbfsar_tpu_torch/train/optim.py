@@ -1,5 +1,6 @@
 """The synthetic trainers' optimizer: ``optax.chain(clip_by_global_norm(1.0),
-adam(lr))``, written as optax computes it (optax 0.2).
+adam(lr))``, written as optax computes it (optax 0.2); with ``max_norm=None``
+plain ``optax.adam(lr)`` (the mutual-gaze trainer's).
 
 * The clip: with ``norm = sqrt(sum over leaves of sum(g * g))``, every
   gradient becomes ``where(norm < max_norm, g, g / norm * max_norm)``.
@@ -17,13 +18,14 @@ weights, not the moments.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
 
 class ClipAdam:
-    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, max_norm: float = 1.0,
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 max_norm: Optional[float] = 1.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.params = [p for p in params if p.requires_grad]
         self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
@@ -42,11 +44,12 @@ class ClipAdam:
         Multi-tensor (``torch._foreach_*``) operations: a few launches a
         step, not a dozen per parameter."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        # the global norm: the square root of the sum of each leaf's sum of squares
-        norm = torch.sqrt(sum(n * n for n in torch._foreach_norm(grads)))
-        scaled = torch._foreach_div(grads, norm)
-        torch._foreach_mul_(scaled, self.max_norm)
-        grads = [torch.where(norm < self.max_norm, g, c) for g, c in zip(grads, scaled)]
+        if self.max_norm is not None:
+            # the global norm: the square root of the sum of each leaf's sum of squares
+            norm = torch.sqrt(sum(n * n for n in torch._foreach_norm(grads)))
+            scaled = torch._foreach_div(grads, norm)
+            torch._foreach_mul_(scaled, self.max_norm)
+            grads = [torch.where(norm < self.max_norm, g, c) for g, c in zip(grads, scaled)]
         self.count += 1
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)

@@ -293,6 +293,20 @@ def convert_focus(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     return {k: convert_variables(params[k]) for k in ("face_det", "lm_refiner", "gaze_net")}
 
 
+def convert_head_pose(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``HeadPoseDetector``'s tree ``{"face_det", "hopenet"}`` -> state dicts
+    of ``BlazeFaceLite`` and ``HopeNet`` (its ResNet-50 under ``ResNet_0``)."""
+    return {k: convert_variables(params[k]) for k in ("face_det", "hopenet")}
+
+
+def convert_mutual_gaze(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``MutualGazeDetector``'s tree ``{"detector", "backbone", "classifier"}``
+    -> state dicts of ``HeadDetectorNet`` (``trunk``, ``fpn.lat{i}``,
+    ``fpn.smooth{i}``, ``cls_head``, ``box_head``), the ResNet and
+    ``BinaryGazeClassifier``."""
+    return {k: convert_variables(params[k]) for k in ("detector", "backbone", "classifier")}
+
+
 def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     """The inverse of :func:`convert_variables`: a port module's state dict
     -> Flax variables ``{"params": ...}`` (plus ``"batch_stats"`` where the

@@ -1,6 +1,6 @@
 """The PyTorch port's CUDA kernels and CUDA graphs on the GPU (skeleton,
-rgb and hybrid steps), and its recognizer trainer and evaluators on the
-card against the CPU. Every test here
+rgb and hybrid steps), its recognizer trainer and evaluators, the
+synthetic trainers and the focus alternatives on the card against the CPU. Every test here
 needs an NVIDIA GPU and nvcc and skips elsewhere. The file imports neither
 JAX nor the JAX package, so it runs on a machine without them:
 
@@ -577,4 +577,28 @@ def test_synthetic_trainer_steps_on_card_match_cpu(cuda):
         print(kind, err)
         assert err["finite"], kind
         for k, v in tol.items():
+            assert err[k] <= v, (kind, k, err[k])
+
+
+def test_focus_alternatives_on_card_match_cpu(cuda, tmp_path):
+    """chip_smoke phase 12a: the three focus-alternative detectors in float32
+    and one step of each of their trainers, on the card against the CPU from
+    one seeded init (chip_smoke.TOL_ALT, TOL_ALT_TRAIN), the crops from one
+    box equal, and neither kernel launched."""
+    from chip_smoke import (TOL_ALT, TOL_ALT_TRAIN, alt_detector_errors, alt_step_errors,
+                            launches, zero_launches)
+
+    zero_launches()
+    dets = alt_detector_errors()
+    steps = {kind: alt_step_errors(kind, str(tmp_path)) for kind in TOL_ALT_TRAIN}
+    assert set(launches().values()) == {0}
+    for name, err in dets.items():
+        print(name, err)
+        assert err["crop_px_differ"] == 0, name
+        for k, v in TOL_ALT.items():
+            assert err[k] <= v, (name, k, err[k])
+    for kind, err in steps.items():
+        print(kind, err)
+        assert err["finite"], kind
+        for k, v in TOL_ALT_TRAIN[kind].items():
             assert err[k] <= v, (kind, k, err[k])

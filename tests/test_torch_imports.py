@@ -201,6 +201,38 @@ SCRIPT = textwrap.dedent(r"""
         hit = cached_params(ps._CI_KEY_V[1](), lambda: 1 / 0, version=ps._CI_KEY_V[0])
         assert set(hit) == {"yolo", "bbone", "head"} and not os.path.exists(tmp + "/params_cache")
         assert len(weights.verify()) == 7
+
+        # the focus alternatives: each detector, a step of each trainer on a
+        # PNG tree read without cv2, and the sweep's cross-validation
+        from isbfsar_tpu_torch.configs import MutualGazeConfig
+        from isbfsar_tpu_torch.focus import HeadDetector, HeadPoseDetector, MutualGazeDetector
+        from isbfsar_tpu_torch.train.detection import DetectorTrainer
+        from isbfsar_tpu_torch.train.mutualgaze import MutualGazeTrainer, WatchingDataset
+        from isbfsar_tpu_torch.train.sweep import SweepEntry, run_sweep
+        mg = MutualGazeConfig(crop_size=32, score_thr=0.0, lr=1e-3)
+        assert HeadDetector(mg, input_size=64, device="cpu").estimate(bgr)[0].shape == (4,)
+        assert isinstance(MutualGazeDetector(mg, device="cpu").estimate(bgr)[0], bool)
+        pose = HeadPoseDetector(crop_size=32, device="cpu")._forward_impl(torch.from_numpy(bgr))
+        assert pose["angles"].shape == (3,)
+        boxes = np.zeros((2, 4, 4), np.float32)
+        boxes[:, 0] = [0.2, 0.2, 0.6, 0.7]
+        det = DetectorTrainer(mg, input_size=64, device="cpu")
+        assert np.isfinite(det.train_step({"image": np.full((2, 64, 64, 3), 0.5, np.float32),
+                                           "boxes": boxes, "valid": boxes[..., 2] > 0}))
+        for session in ("s0", "s1"):
+            for label in (0, 1):
+                os.makedirs(f"{tmp}/watch/tiny/{session}/{label}")
+                for i in range(2):
+                    write_png(f"{tmp}/watch/tiny/{session}/{label}/{i}.png",
+                              np.full((40, 40, 3), 40 + 180 * label, np.uint8))
+        ds = WatchingDataset(f"{tmp}/watch/tiny", crop_size=32)
+        assert len(ds) == 8 and ds[0][0].shape == (32, 32, 3)
+        mgt = MutualGazeTrainer(mg, log_dir=tmp + "/mg_log", device="cpu")
+        assert np.isfinite(mgt.train_epoch(ds, batch_size=4))
+        mgt.logger.close()
+        summary = run_sweep(tmp + "/watch", grid=[SweepEntry("T", mg, "tiny")], batch_size=4,
+                            log_dir=tmp + "/sweep_log", device="cpu")
+        assert 0.0 <= summary["T"]["f1"] <= 1.0
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
