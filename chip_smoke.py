@@ -183,6 +183,23 @@ Phases, each timed; any failure exits non-zero and prints no result:
    first entry on a tiny 2-session tree at 224, 1 epoch, and its wall.
    Neither kernel is on these paths: both counts must stay 0.
 
+13. several devices, from one card: (a) a process group of one rank on
+   NCCL: the wrapped trainer step under ``param_sharding`` replicated
+   (DDP), fsdp (FSDP2) and tp (a 1x1 dp x tp mesh), BatchNorm sync on,
+   against the plain step from one init and batch (rgb at the CI size,
+   batch 2; skeleton at the production ``ARConfig``, batch 32) within
+   ``TOL_PAR``, and each step's p50 beside the plain one's; then
+   ``MultiStreamPipeline(mesh=make_mesh(1))`` on the headline cell
+   (``build_slice``, I420 640x480, S=4, B=16, graphs, focus) bit-equal to
+   the mesh-less one, its launches counted; sequence parallelism needs two
+   ranks and is skipped; (b) two ranks on the one card over gloo with
+   CUDA tensors (NCCL refuses two ranks on one device): the dp rgb
+   certificate with synced BatchNorm, the dp skeleton certificate and the
+   way-sharding certificate (way 4), from one process group. gloo has no
+   reduce-scatter for CUDA tensors, so FSDP2 and sp stay on CPU ranks at a
+   world of two; nothing wider than one card is measured, and no NCCL time
+   across cards. 13b prints no speed.
+
 The four weight files are required (``pose-ci-motions``, ``focus-ci``, the
 ``pose-prod-256-calib`` delta and ``pose-diverse-256``): a missing one
 fails the run; phase 11 reads no other.
@@ -460,6 +477,20 @@ ALT_FRAMES = 20
 ALT_TIMED_STEPS = 10
 ALT_DET_BATCH = 4
 ALT_SWEEP_PER = 4
+# Phase 13a, several devices at a world of one (NCCL on cuda:0): each
+# wrapped trainer step (DDP, FSDP2, tensor parallelism on a 1x1 mesh, the
+# BatchNorm sync on) against the plain step from one init and batch. At a
+# world of one the wrappers change the arithmetic only where the sync and
+# the tp reductions take sums where the plain step takes means: rgb
+# (float32, ill-conditioned at this size: tests/torch_rgb_parity.py) reads
+# that in the update; skeleton in rounding. Limits about four times what an
+# NVIDIA H100 80GB HBM3 at 700 W read (CHANGES.md): param_rel_diff
+# (the difference relative to the update) and the running statistics.
+TOL_PAR = {"rgb": {"param_rel_diff": 0.025, "max_stats_diff": 2.5e-5},
+           "skeleton": {"param_rel_diff": 1e-5, "max_stats_diff": 0.0}}
+PAR_RGB_BATCH, PAR_SK_BATCH = 2, 32
+PAR_TIMED_STEPS = 5
+PAR_TICKS = 32  # 13a's multi-stream drive: two (S, B) blocks
 
 
 def log(msg: str) -> None:
@@ -2490,6 +2521,124 @@ def run_focus_alt(card: str) -> dict:
             "focus alternatives at full width (12b)": counts}
 
 
+def par_trainer(cfg, mesh=None, param_sharding: str = "replicated"):
+    from isbfsar_tpu_torch.train.trainer import Trainer
+
+    return Trainer(cfg, log_dir=tempfile.mkdtemp(prefix="par_"), use_wandb=False, seed=0,
+                   device="cuda:0", mesh=mesh, param_sharding=param_sharding)
+
+
+def par_steps(trainer, batch: dict) -> tuple:
+    """One step from the trainer's init (the init and the result as Flax
+    trees), then PAR_TIMED_STEPS timed steps on the same batch: p50 ms."""
+    from isbfsar_tpu_torch.parallel.parity import _step
+
+    out = _step(trainer, batch)
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(PAR_TIMED_STEPS):
+        t = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    return out, p50_ms(lat)
+
+
+def run_parallel_world1(card: str) -> dict:
+    """Phase 13a (see the module docstring); returns the multi-stream
+    path's kernel launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.parallel import mesh as pmesh
+    from isbfsar_tpu_torch.parallel.parity import _report
+    from isbfsar_tpu_torch.serving import MultiStreamPipeline
+    from isbfsar_tpu_torch.train.synthetic import episodic_batch
+
+    t = time.perf_counter()
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="par_"), "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    torch.cuda.set_device(0)
+    try:
+        for mode, batch_size, rgb_size in (("rgb", PAR_RGB_BATCH, 32),
+                                           ("skeleton", PAR_SK_BATCH, 224)):
+            cfg = dataclasses.replace(ARConfig.for_input(mode), batch_size=batch_size,
+                                      n_task=batch_size, rgb_size=rgb_size,
+                                      eval_every_n_epoch=10_000)
+            batch = episodic_batch(cfg, batch_size, rgb_size, mode, seed=0)
+            plain, plain_ms = par_steps(par_trainer(cfg), batch)
+            for sharding, mesh in (("replicated", pmesh.make_mesh(1, device="cuda")),
+                                   ("fsdp", pmesh.make_mesh(1, device="cuda")),
+                                   ("tp", pmesh.make_mesh_2d((1, 1), ("dp", "tp"), "cuda"))):
+                wrapped, ms = par_steps(par_trainer(cfg, mesh, sharding), batch)
+                err = _report(plain, wrapped)
+                log(f"[parallel] 13a {mode} (batch {batch_size}) {sharding} on NCCL, world 1: "
+                    + " ".join(f"{k} {v:.3g}" for k, v in err.items())
+                    + f"; step p50 {ms:.3f} ms wrapped, {plain_ms:.3f} ms plain; {card}")
+                over = [f"{k} {err[k]} > {tol}" for k, tol in TOL_PAR[mode].items()
+                        if not err[k] <= tol]
+                if over:
+                    raise AssertionError(f"13a {mode} {sharding}: " + "; ".join(over))
+        log("[parallel] 13a sequence parallelism skipped: it needs >= 2 ranks, and NCCL "
+            f"refuses two ranks on one device; the trainer steps took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+
+        pipe = build_slice(seed=0, cuda_graphs=True)
+        i420 = slice_frames()
+        ticks = [np.stack([i420[(i + 2 * s) % len(i420)] for s in range(STREAMS)])
+                 for i in range(PAR_TICKS)]
+        runs = {}
+        for name, mesh in (("plain", None), ("mesh", pmesh.make_mesh(1, device="cuda"))):
+            multi = MultiStreamPipeline(n_streams=STREAMS, pipe=pipe, mesh=mesh)
+            multi.start()
+            list(multi.stream_batched(iter(ticks[:STREAM_BATCH]), STREAM_BATCH))  # capture
+            multi.start()
+            torch.cuda.synchronize()
+            zero_launches()
+            runs[name] = list(multi.stream_batched(iter(ticks), STREAM_BATCH))
+            counts = launches()
+        check_launches("MultiStreamPipeline over make_mesh(1)", counts, PAR_TICKS // STREAM_BATCH)
+        check_close(f"parallel: MultiStreamPipeline S={STREAMS} B={STREAM_BATCH} over "
+                    "make_mesh(1) vs without a mesh", [o for tick in runs["mesh"] for o in tick],
+                    [o for tick in runs["plain"] for o in tick], TOL_GRAPH)
+        log(f"[parallel] 13a multi-stream on the headline cell took {time.perf_counter() - t:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return {f"MultiStreamPipeline S={STREAMS} B={STREAM_BATCH} over make_mesh(1)": counts}
+
+
+def run_parallel_pair() -> None:
+    """Phase 13b (see the module docstring). The skeleton certificate holds
+    the parameters to JAX's 2e-6 and the losses to ``CARD_PAIR_METRIC_ATOL``
+    (cuBLAS picks its kernels by batch size); the card's own one-device
+    reading of the same batch split in two is logged beside it as a
+    witness."""
+    from isbfsar_tpu_torch.parallel.parity import (CARD_PAIR_METRIC_ATOL, _dp_case, pair_checks,
+                                                   split_reading)
+
+    split = split_reading(*_dp_case(2, "skeleton"), 2, "cuda")
+    log(f"[parallel] 13b skeleton batch of 2 split in two on one device: losses move {split:.3g}; "
+        f"the 2-rank certificate's bounds: parameters 2e-06, losses {CARD_PAIR_METRIC_ATOL:.3g}")
+    for name, report in pair_checks("cuda", "gloo", way=4,
+                                    skeleton_metric_atol=CARD_PAIR_METRIC_ATOL).items():
+        log(f"[parallel] 13b {name} certificate, 2 ranks on cuda:0 over gloo (CUDA tensors): "
+            + " ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                       for k, v in report.items()))
+    log("[parallel] 13b: gloo has no reduce-scatter for CUDA tensors, so FSDP2 and sequence "
+        "parallelism run on CPU ranks only at a world of two (tests/test_torch_parallel_*.py); "
+        "nothing wider than one card was measured, and no NCCL time across cards")
+
+
+def run_parallel(card: str) -> dict:
+    """Phase 13: several devices from one card."""
+    by_path = run_parallel_world1(card)
+    run_parallel_pair()
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -2546,6 +2695,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_focus_alt(card))
     phases["focus_alt"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path.update(run_parallel(card))
+    phases["parallel"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

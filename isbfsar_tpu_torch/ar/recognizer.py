@@ -120,11 +120,13 @@ class ActionRecognizer:
         return int(self.support_mask.sum())
 
     @torch.inference_mode()
-    def embed_support(self) -> torch.Tensor:
-        """(way, L, D) features of the support data (empty slots included):
-        in rgb and hybrid, way * L ResNet-50 forwards as one batch."""
+    def embed_support(self, classes: slice = slice(None)) -> torch.Tensor:
+        """(way, L, D) features of the support data (empty slots included),
+        or of its ``classes`` slots alone: in rgb and hybrid, way * L
+        ResNet-50 forwards as one batch."""
         return self.model.extract_features(
-            {m: torch.from_numpy(v).to(self.device) for m, v in self.support_data.items()})
+            {m: torch.from_numpy(np.ascontiguousarray(v[classes])).to(self.device)
+             for m, v in self.support_data.items()})
 
     def _live_classes(self) -> List[str]:
         return [c for c, v in zip(self.class_order, self.support_mask) if v and c is not None]

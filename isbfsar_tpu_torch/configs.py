@@ -35,6 +35,7 @@ class MainConfig:
     (``window_size`` good frames paced over ``acquisition_time`` seconds)."""
 
     input_type: str = DEFAULT_INPUT_TYPE
+    cam: str = "synthetic"  # "webcam" | "realsense" | "synthetic"; read by nothing, as in JAX
     cam_width: int = 640
     cam_height: int = 480
     window_size: int = seq_len_for(DEFAULT_INPUT_TYPE)
@@ -83,6 +84,7 @@ class HPEConfig:
     max_detections: int = 64  # ops/nms.py::postprocess_yolo's capacity
     expand_joints_path: str = os.path.join(ASSETS_DIR, "joints_32_to_122.npy")
     skeletons_path: str = os.path.join(ASSETS_DIR, "skeletons.npz")
+    checkpoint_dir: Optional[str] = None  # read by nothing, as in JAX
     compute_dtype: str = "bfloat16"
 
 

@@ -1,1 +1,3 @@
-"""Part of the PyTorch port (see isbfsar_tpu_torch/__init__.py)."""
+"""The pose estimator (see isbfsar_tpu_torch/__init__.py)."""
+
+from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator  # noqa: F401

@@ -8,6 +8,7 @@ from isbfsar_tpu_torch.models.detection import (  # noqa: F401
 )
 from isbfsar_tpu_torch.models.effnetv2 import (  # noqa: F401
     V2_L,
+    V2_S,
     V2_TINY,
     EfficientNetV2,
     MetrabsHead,

@@ -43,6 +43,16 @@ V2_L = (
     StageSpec(False, 6, 3, 1, 640, 7, 0.25),
 )
 
+# smaller variants for tests and lighter deployments
+V2_S = (
+    StageSpec(True, 1, 3, 1, 24, 2),
+    StageSpec(True, 4, 3, 2, 48, 4),
+    StageSpec(True, 4, 3, 2, 64, 4),
+    StageSpec(False, 4, 3, 2, 128, 6, 0.25),
+    StageSpec(False, 6, 3, 1, 160, 9, 0.25),
+    StageSpec(False, 6, 3, 2, 256, 15, 0.25),
+)
+
 V2_TINY = (  # test-only: tiny but same topology family
     StageSpec(True, 1, 3, 1, 8, 1),
     StageSpec(True, 2, 3, 2, 16, 1),

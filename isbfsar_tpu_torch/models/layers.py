@@ -8,7 +8,12 @@
   running averages move only through :meth:`BatchNorm.update`, by its
   ``momentum`` (``BN_MOMENTUM`` = 0.9 unless the net says otherwise) with
   that same biased variance (torch's own update would take the unbiased
-  one).
+  one). With a process group in its ``group`` (:func:`sync_batch_stats`),
+  a training forward first sums its ``Σx``, ``Σx²`` and count over the
+  group (a differentiable all-reduce, whose backward sums the gradient over
+  the ranks), so every rank normalizes with the statistics of the whole
+  batch across the group, as one device would; ``nn.SyncBatchNorm``
+  refuses CPU tensors.
 * :class:`Conv` takes the compute dtype of its input and casts its stored
   weights to it, as a Flax ``nn.Conv(dtype=...)`` does; ``padding="SAME"``
   pads like XLA (for stride 2 on even sizes: 0 before, 1 after).
@@ -38,6 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from isbfsar_tpu_torch.parallel.collectives import all_reduce_sum
+
 
 # the running averages' default momentum in training: the JAX nets' BatchNorms
 # pass 0.9 (JAX models/resnet.py:98-100, yolov4.py:55, effnetv2.py:91 and
@@ -56,6 +63,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = None  # the process group training statistics are taken over
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats: Optional[list] = None) -> torch.Tensor:  # NCHW
@@ -67,8 +75,16 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0,
                                 self.eps)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # at least float32, as Flax
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            c = xf.shape[1]
+            count = torch.full((1,), float(xf.numel() // c), dtype=xf.dtype, device=xf.device)
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                             count]), self.group)
+            mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         if stats is not None:
@@ -81,6 +97,14 @@ class BatchNorm(nn.Module):
         ``batch_stats`` update does."""
         self.mean.copy_(self.momentum * self.mean + (1.0 - self.momentum) * mean)
         self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
+
+
+def sync_batch_stats(module: nn.Module, group) -> None:
+    """Every BatchNorm of ``module`` takes its training statistics over
+    ``group`` (None: over its own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def update_running_stats(stats: list) -> None:

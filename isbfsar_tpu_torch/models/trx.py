@@ -16,6 +16,16 @@ and the recognizer run, with the support K/V cached. ``train`` and ``stats``
 reach the ResNet-50's BatchNorm only (``models/resnet.py``): the query's
 b·L frames are one BatchNorm batch and the support's b·way·L frames
 another, extracted in that order, as the JAX module does.
+
+Under tensor parallelism (``parallel/mesh.py::shard_params_tp``) the
+transformer's ``tp_group`` is set and its K/V linears hand back their
+local feature columns: ``norm_k`` then takes its mean and ``E[x²]`` over
+the group and normalizes the local columns with its slice of the
+replicated scale and bias, the score einsum's partial sums are added over
+the group, and the distance logits' too; the prototypes and the
+differences stay feature-sharded, as the discriminator's row-parallel
+``reduce`` takes them. Each reduction is the one GSPMD inserts for the JAX
+sharding (``parallel/collectives.py`` gives each its backward).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from isbfsar_tpu_torch.configs import ARConfig
 from isbfsar_tpu_torch.models.layers import LayerNorm
 from isbfsar_tpu_torch.models.resnet import resnet50
 from isbfsar_tpu_torch.ops.tuples import frame_tuples
+from isbfsar_tpu_torch.parallel.collectives import all_reduce_sum, tp_copy, tp_reduce
 
 NEG_INF = -1e30
 
@@ -99,6 +110,23 @@ class TemporalCrossTransformer(nn.Module):
         self.k_linear = nn.Linear(set_size * in_dim, out_dim)
         self.v_linear = nn.Linear(set_size * in_dim, out_dim)
         self.norm_k = LayerNorm(out_dim)
+        self.tp_group = None  # set when k_linear and v_linear are column-parallel
+
+    def _norm_keys(self, k):
+        """``norm_k`` over the whole feature axis, also when ``k`` holds
+        this rank's columns of it."""
+        g = self.tp_group
+        if g is None:
+            return self.norm_k(k)
+        width = k.shape[-1]
+        lo = torch.distributed.get_rank(g) * width
+        sums = all_reduce_sum(torch.cat([k.sum(dim=-1, keepdim=True),
+                                         (k * k).sum(dim=-1, keepdim=True)], dim=-1), g)
+        mean, mean_sq = sums[..., :1] / self.out_dim, sums[..., 1:] / self.out_dim
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        scale = tp_copy(self.norm_k.weight, g)[lo:lo + width]
+        bias = tp_copy(self.norm_k.bias, g)[lo:lo + width]
+        return (k - mean) * (torch.rsqrt(var + self.norm_k.eps) * scale) + bias
 
     def _tuplify(self, feats):
         """(..., L, D) -> (..., n_tuples, set_size * D) after the positional encoding."""
@@ -109,17 +137,23 @@ class TemporalCrossTransformer(nn.Module):
     def support_kv(self, support_features):
         """(b, way, L, D) -> keys and values, each (b, way, T, out)."""
         s_tup = self._tuplify(support_features)
-        return self.norm_k(self.k_linear(s_tup)), self.v_linear(s_tup)
+        return self._norm_keys(self.k_linear(s_tup)), self.v_linear(s_tup)
 
     def match(self, s_k, s_v, support_mask, query_features) -> Dict[str, torch.Tensor]:
+        g = self.tp_group
         q_tup = self._tuplify(query_features)  # (b, T, 2D)
-        q_k = self.norm_k(self.k_linear(q_tup))
+        q_k = self._norm_keys(self.k_linear(q_tup))
         q_v = self.v_linear(q_tup)
-        scores = torch.einsum("btd,bwsd->bwts", q_k, s_k) / np.float32(np.sqrt(self.out_dim))
+        scores = torch.einsum("btd,bwsd->bwts", q_k, s_k)
+        if g is not None:  # each rank's prototype columns read the whole attention
+            scores = all_reduce_sum(scores, g)
+        scores = scores / np.float32(np.sqrt(self.out_dim))
         attn = torch.softmax(scores, dim=-2)  # over the query-tuple axis
         proto = torch.einsum("bwts,bwsd->bwtd", attn, s_v)
         diff = q_v[:, None] - proto
         norm_sq = torch.square(diff).sum(dim=(-2, -1))
+        if g is not None:  # the logits feed replicated work only
+            norm_sq = tp_reduce(norm_sq, g)
         logits = -(norm_sq / self.tuples.shape[0])
         logits = torch.where(support_mask, logits, torch.full_like(logits, NEG_INF))
         return {"logits": logits, "diffs": diff, "prototypes": proto, "attention": attn}

@@ -32,6 +32,12 @@ def _alpha(cutoff, fs: float):
     return 1.0 / (1.0 + tau / te)
 
 
+def one_euro_init(x0) -> Dict[str, torch.Tensor]:
+    """Filter state from the first observation (a tensor or numpy array)."""
+    x0 = torch.as_tensor(x0, dtype=torch.float32)
+    return {"x": x0, "dx": torch.zeros_like(x0)}
+
+
 def one_euro_gated_state(shape, device=None, lead=()) -> Dict[str, torch.Tensor]:
     """The state of ``prod(lead)`` filters of observations of ``shape``."""
     lead = tuple(lead)

@@ -19,3 +19,7 @@ def frame_tuples(seq_len: int, set_size: int = 2) -> np.ndarray:
     """(n_tuples, set_size) int32 — all combinations in lexicographic order."""
     combos = list(itertools.combinations(range(seq_len), set_size))
     return np.asarray(combos, dtype=np.int32)
+
+
+def n_tuples(seq_len: int, set_size: int = 2) -> int:
+    return frame_tuples(seq_len, set_size).shape[0]

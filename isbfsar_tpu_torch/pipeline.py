@@ -181,6 +181,9 @@ class _StaticSteps:
     _state: Optional[StreamState]
     _support_kv: Any
     _support_mask: Optional[torch.Tensor]
+    # the step's match of the windows against the support set, where it is
+    # not the whole set on this device (serving.py, the way-sharded one)
+    _match = None
 
     @torch.inference_mode()
     def _assign(self, **fresh) -> None:
@@ -206,14 +209,14 @@ class _StaticSteps:
             return graph.run(frames, self._graph_body)
         packed, self._state = pipe._step_batch_impl(
             pipe._device_params, to_device(frames, pipe.device), self._support_kv, self._state,
-            self._support_mask)
+            self._support_mask, self._match)
         return packed
 
     def _graph_body(self, frames: torch.Tensor) -> torch.Tensor:
         """The step over the static buffers: writes the new state into them."""
         packed, new = self.pipe._step_batch_impl(self.pipe._device_params, frames,
                                                  self._support_kv, self._state,
-                                                 self._support_mask)
+                                                 self._support_mask, self._match)
         for dst, src in zip(_tensors(self._state), _tensors(new), strict=True):
             dst.copy_(src)
         return packed
@@ -325,11 +328,14 @@ class FusedPipeline(_StaticSteps):
         return frames, yolo_preprocess(frames, size)
 
     @torch.inference_mode()
-    def _step_batch_impl(self, params, frames, support_kv, state: StreamState, support_mask):
+    def _step_batch_impl(self, params, frames, support_kv, state: StreamState, support_mask,
+                         match=None):
         """B frames of one stream -> ((B, layout.size) packed float32, new
         state). With a state of S streams (a leading axis S), (S, B) frames
         -> ((S, B, layout.size), new state): the nets run on the S*B frames
-        at once, the recurrences per stream."""
+        at once, the recurrences per stream. ``match(recognizer, windows,
+        support_mask, s_k, s_v) -> (probs, is_true)`` replaces the match of
+        the windows against the whole support set."""
         cfg = self.config.ar
         lead = tuple(state.n_valid.shape)
         t = len(lead)  # the time axis of the frames
@@ -387,11 +393,14 @@ class FusedPipeline(_StaticSteps):
         n_valids = torch.stack(n_valids, dim=t).reshape(n)
 
         s_k, s_v = support_kv
-        out = params["ar"].match_features(
-            windows, support_mask.expand(n, -1), s_k.expand(n, *s_k.shape),
-            s_v.expand(n, *s_v.shape))
-        probs = torch.softmax(out["logits"], dim=-1)
-        is_true = out["is_true"][:, 0]
+        if match is None:
+            out = params["ar"].match_features(
+                windows, support_mask.expand(n, -1), s_k.expand(n, *s_k.shape),
+                s_v.expand(n, *s_v.shape))
+            probs = torch.softmax(out["logits"], dim=-1)
+            is_true = out["is_true"][:, 0]
+        else:
+            probs, is_true = match(params["ar"], windows, support_mask, s_k, s_v)
         ar_ready = (n_valids >= cfg.seq_len) & support_mask.any()
         values = {
             "pose": rel_pose,

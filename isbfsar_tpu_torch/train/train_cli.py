@@ -8,14 +8,29 @@ read by path.
 
     python -m isbfsar_tpu_torch.train.train_cli --data <dataset_root> \\
         [--input-type skeleton|rgb|hybrid] [--remat] [--epochs 100] [--batch-size 32] \\
-        [--device cuda|cpu] [--resume CKPT]
+        [--device cuda|cpu] [--resume CKPT] \\
+        [--param-sharding replicated|fsdp|tp] [--tp-degree 2] [--sp-degree N]
+
+    torchrun --nproc-per-node 4 -m isbfsar_tpu_torch.train.train_cli --data <root> \\
+        --param-sharding fsdp
 
 ``--device`` defaults to ``cuda`` and fails without a card. ``--resume``
 takes a checkpoint of either package, with ``batch_stats`` in rgb and
 hybrid. ``--remat`` recomputes the rgb extractor per residual block in the
-backward pass. The JAX package's ``fsdp``/``tp`` sharding and
-``--sp-degree`` (several devices, ROADMAP A.17) are not ported and exit
-with an error.
+backward pass.
+
+Under ``torchrun`` (its ``RANK``/``WORLD_SIZE`` environment) every rank
+joins the process group (NCCL on the card, each rank on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and trains its share of
+each batch over a mesh of all the ranks: ``dp`` with DDP, or with
+``--param-sharding fsdp`` FSDP2; ``--param-sharding tp`` a dp x tp mesh of
+``--tp-degree``; ``--sp-degree`` a dp x sp mesh with the clips' time axis
+split (with replicated or fsdp parameters, not tp). A degree that does not
+divide the ranks (or ``seq_len``) exits with an error. Without a launcher
+the run is one device; a sharding option then makes a one-rank group, as
+the JAX CLI's options run on a one-device mesh. Every rank reads the whole
+batch from its own loader and keeps its rows; only rank 0 writes
+checkpoints and the metrics file.
 """
 
 from __future__ import annotations
@@ -55,14 +70,54 @@ def ntu_splits(all_classes: List[str]) -> Tuple[List[str], List[str], List[str]]
     return rest[:idx], rest[idx:], test
 
 
-def unported(args) -> str:
-    """Why the options asked for cannot run in the port, or ''."""
-    if args.param_sharding != "replicated":
-        return (f"--param-sharding {args.param_sharding}: the port trains on one device; "
-                "fsdp/tp become DDP/FSDP (ROADMAP A.17)")
+def init_group(device: str) -> str:
+    """Join the launcher's process group (or make a one-rank one); returns
+    this rank's device."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    cuda = device.startswith("cuda")
+    backend = "nccl" if cuda else "gloo"
+    timeout = datetime.timedelta(minutes=30)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, timeout=timeout)
+    else:
+        store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="train_cli_"), "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1, timeout=timeout)
+    if cuda:
+        import torch
+
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+    return device
+
+
+def build_mesh(args, cfg, device: str):
+    """(mesh, seq_axis) for the options over the group's ranks, or an error string."""
+    import torch.distributed as dist
+
+    from isbfsar_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    n = dist.get_world_size()
+    if args.param_sharding == "tp":
+        if args.sp_degree:
+            return "--sp-degree composes with replicated/fsdp param sharding, not tp"
+        tp = args.tp_degree
+        if n % tp:
+            return f"--tp-degree {tp} does not divide {n} devices"
+        print(f"[train] tensor-parallel mesh: dp{n // tp} x tp{tp}")
+        return make_mesh_2d((n // tp, tp), ("dp", "tp"), device), None
     if args.sp_degree:
-        return "--sp-degree: sequence parallelism is not ported (ROADMAP A.17)"
-    return ""
+        sp = args.sp_degree
+        if n % sp:
+            return f"--sp-degree {sp} does not divide {n} devices"
+        if cfg.seq_len % sp:
+            return f"--sp-degree {sp} does not divide seq_len={cfg.seq_len}"
+        print(f"[train] sequence-parallel mesh: dp{n // sp} x sp{sp}")
+        return make_mesh_2d((n // sp, sp), ("dp", "sp"), device), "sp"
+    return make_mesh(device=device), None
 
 
 def main(argv=None) -> int:
@@ -78,22 +133,21 @@ def main(argv=None) -> int:
                         help="msgpack checkpoint to resume, written by either package")
     parser.add_argument("--param-sharding", default="replicated",
                         choices=["replicated", "fsdp", "tp"],
-                        help="only replicated is ported (one device)")
+                        help="replicated = DDP over the ranks; fsdp = FSDP2 parameter and "
+                             "optimizer-state sharding over dp; tp = tensor parallelism over a "
+                             "dp x tp mesh (--tp-degree)")
     parser.add_argument("--tp-degree", type=int, default=2,
-                        help="tensor-parallel axis size under --param-sharding tp (not ported)")
+                        help="tensor-parallel axis size under --param-sharding tp")
     parser.add_argument("--remat", action="store_true",
                         help="recompute the rgb extractor per residual block in the backward "
                              "pass (less activation memory, one more forward)")
     parser.add_argument("--sp-degree", type=int, default=0,
-                        help="sequence-parallel axis size (not ported)")
+                        help="sequence-parallel axis size: each rank embeds L/sp frames of "
+                             "every clip (rgb and hybrid)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda; no fallback to the CPU)")
     args = parser.parse_args(argv)
 
-    why = unported(args)
-    if why:
-        print(f"[train] {why}", file=sys.stderr)
-        return 2
     import torch
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -116,6 +170,16 @@ def main(argv=None) -> int:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
 
+    mesh, seq_axis, device = None, None, args.device
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if launched or args.param_sharding != "replicated" or args.sp_degree:
+        device = init_group(args.device)
+        built = build_mesh(args, cfg, device)
+        if isinstance(built, str):
+            print(f"[train] {built}", file=sys.stderr)
+            return 2
+        mesh, seq_axis = built
+
     train_classes, val_classes, test_classes = ntu_splits(list_classes(args.data))
     print(f"[train] classes: {len(train_classes)} train / {len(val_classes)} val / "
           f"{len(test_classes)} held-out test")
@@ -127,8 +191,8 @@ def main(argv=None) -> int:
     train_sampler.all_classes = train_classes or train_sampler.all_classes
     valid_sampler.all_classes = val_classes or valid_sampler.all_classes
 
-    trainer = Trainer(cfg, train_sampler, valid_sampler, log_dir=args.log_dir,
-                      device=args.device)
+    trainer = Trainer(cfg, train_sampler, valid_sampler, log_dir=args.log_dir, device=device,
+                      mesh=mesh, param_sharding=args.param_sharding, seq_axis=seq_axis)
     if args.resume:
         state = load_checkpoint(args.resume, {"params": None, "batch_stats": None,
                                               "opt_state": None})
@@ -137,6 +201,10 @@ def main(argv=None) -> int:
 
     summary = trainer.fit(n_epochs=args.epochs)
     print(f"[train] done on {trainer.device}: {summary}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -24,6 +24,10 @@ class SkeletonSpec:
     edges: np.ndarray  # (n_edges, 2) int32
     joint_names: Tuple[str, ...]
 
+    @property
+    def n_joints(self) -> int:
+        return len(self.indices)
+
 
 @functools.lru_cache(maxsize=None)
 def load_registry(path: str = "") -> Dict[str, SkeletonSpec]:

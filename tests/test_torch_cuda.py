@@ -602,3 +602,21 @@ def test_focus_alternatives_on_card_match_cpu(cuda, tmp_path):
         assert err["finite"], kind
         for k, v in TOL_ALT_TRAIN[kind].items():
             assert err[k] <= v, (kind, k, err[k])
+
+
+def test_pair_certificates_on_card(cuda):
+    """Two ranks on the card over gloo with CUDA tensors (NCCL refuses two
+    ranks on one device): the dp rgb certificate (BatchNorm synced), the dp
+    skeleton certificate and the way-sharding certificate, each against the
+    card's own 1-device result, in one process group. The skeleton
+    parameters are held to JAX's 2e-6 and its losses to
+    ``CARD_PAIR_METRIC_ATOL`` (cuBLAS picks its kernels by batch size)."""
+    from isbfsar_tpu_torch.parallel.parity import CARD_PAIR_METRIC_ATOL, RGB_BOUNDS, pair_checks
+
+    reports = pair_checks("cuda", "gloo", way=4, skeleton_metric_atol=CARD_PAIR_METRIC_ATOL)
+    assert reports["dp rgb"]["bn_stat_leaves"] == 106
+    for name, bound in RGB_BOUNDS.items():
+        assert reports["dp rgb"][name] <= bound, (name, reports["dp rgb"])
+    assert reports["dp skeleton"]["max_param_diff"] <= 2e-6
+    assert reports["dp skeleton"]["max_metric_diff"] <= CARD_PAIR_METRIC_ATOL
+    assert reports["way"]["max_prob_diff"] <= 1e-5 and reports["way"]["classes_per_device"] == 2

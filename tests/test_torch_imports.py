@@ -16,7 +16,9 @@ source, a 122-joint estimate with test-time augmentation, the extraction
 of a PNG clip, the full YOLO postprocessing and the offline One-Euro; then
 one step of each synthetic trainer (YOLO and heatmap with remat, the three
 focus trainers, the gaze crop through the plain geometry), a bundle hit of
-the parameter cache and the registry's ``verify``."""
+the parameter cache and the registry's ``verify``; then a DDP step, an FSDP2 step and the
+way-sharded matcher in one group of two rank processes started by
+``parallel/launch.py::run_ranks``, which refuse the same imports."""
 
 import os
 import subprocess
@@ -233,6 +235,31 @@ SCRIPT = textwrap.dedent(r"""
         summary = run_sweep(tmp + "/watch", grid=[SweepEntry("T", mg, "tiny")], batch_size=4,
                             log_dir=tmp + "/sweep_log", device="cpu")
         assert 0.0 <= summary["T"]["f1"] <= 1.0
+
+    # several devices: the ranks run_ranks starts refuse the same imports
+    # (a sitecustomize on their path installs the finder) while they run a
+    # DDP step, an FSDP2 step and the way-sharded matcher, in one group
+    from isbfsar_tpu_torch.parallel import parity
+    from isbfsar_tpu_torch.parallel.launch import run_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(tmp + "/sitecustomize.py", "w") as f:
+            f.write("import importlib.abc, sys\n"
+                    f"BLOCKED = {sorted(BLOCKED)!r}\n"
+                    "class Refuse(importlib.abc.MetaPathFinder):\n"
+                    "    def find_spec(self, name, path=None, target=None):\n"
+                    "        if name.split('.')[0] in BLOCKED:\n"
+                    "            raise ImportError(f'refused import of {name}')\n"
+                    "sys.meta_path.insert(0, Refuse())\n")
+        os.environ["PYTHONPATH"] = tmp
+        cfg, batch = parity._dp_case(2, "skeleton")
+        jobs = [(parity._rank_step, (cfg, batch, "cpu", None, ("dp",), sharding, None))
+                for sharding in ("replicated", "fsdp")] + [(parity._rank_way, (4, "cpu"))]
+        ranks = run_ranks(parity._rank_sequence, 2, "cpu", parity.TIMEOUT, jobs)
+        ddp, fsdp, _ = ranks[0]
+        assert fsdp["placement"]["sharded_leaves"] >= 4
+        assert parity.max_diff(ddp["params"], fsdp["params"]) <= 2e-6
+        assert parity._judge_way([r[2] for r in ranks])["max_prob_diff"] <= 1e-5
+        del os.environ["PYTHONPATH"]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))

@@ -449,19 +449,20 @@ def test_episodic_batch_matches_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"param_sharding": "fsdp"}, "A.17"), ({"param_sharding": "tp"}, "A.17"),
-    ({"seq_axis": "sp"}, "A.17"), ({"input_type": "rgb"}, None),
+    ({"param_sharding": "fsdp"}, "need a mesh"), ({"param_sharding": "tp"}, "need a mesh"),
+    ({"seq_axis": "sp"}, "need a mesh"), ({"input_type": "rgb"}, None),
     ({"input_type": "hybrid", "remat": True}, None)])
 def test_trainer_refuses_what_the_port_lacks(tmp_path, kw, what):
-    """Only the A.17 options (several devices) are refused; rgb, hybrid and
-    remat are accepted (``what`` None)."""
+    """The several-device options without a mesh (and no process group to
+    make one from) are refused, never run replicated; rgb, hybrid and remat
+    are accepted (``what`` None)."""
     cfg = tc.ARConfig.for_input(kw.pop("input_type", "skeleton"), remat=kw.pop("remat", False))
     if what is None:
         trainer = ttr.Trainer(cfg, log_dir=str(tmp_path), use_wandb=False, device="cpu", **kw)
         assert trainer.model.rgb_extractor.ResNet_0.remat == cfg.remat
         assert set(trainer.state()["batch_stats"]) == {"rgb_extractor"}
     else:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(ValueError, match=what):
             ttr.Trainer(cfg, log_dir=str(tmp_path), use_wandb=False, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="A.18"):
         tckpt.save_checkpoint(str(tmp_path), 0, {}, backend="orbax")
@@ -523,9 +524,9 @@ def test_train_and_eval_clis_on_the_cpu(cli_trees):
 
 
 @pytest.mark.parametrize("module,args,why", [
-    ("train_cli", ["--param-sharding", "fsdp"], "A.17"),
-    ("train_cli", ["--param-sharding", "tp"], "A.17"),
-    ("train_cli", ["--sp-degree", "2"], "A.17"),
+    ("train_cli", ["--param-sharding", "fsdp"], "no CUDA device"),
+    ("train_cli", ["--param-sharding", "tp"], "no CUDA device"),
+    ("train_cli", ["--sp-degree", "2"], "no CUDA device"),
     ("train_cli", ["--remat"], None),
     ("train_cli", ["--input-type", "rgb"], None),
     ("train_cli", [], "no CUDA device"),
@@ -534,9 +535,9 @@ def test_train_and_eval_clis_on_the_cpu(cli_trees):
     ("train_cli", ["--input-type", "hybrid", "--remat"], None),
     ("eval_cli", ["--input-type", "rgb"], None)])
 def test_clis_refuse_what_they_cannot_run(cli_trees, module, args, why):
-    """The A.17 and A.18 options exit with their reason; rgb, hybrid and
-    --remat (``why`` None) are accepted, so that without a card they stop
-    only at the device check."""
+    """The A.18 options exit with their reason; the sharding options, rgb,
+    hybrid and --remat are accepted, so that without a card they stop only
+    at the device check."""
     if why in (None, "no CUDA device") and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the refusal is for machines without one")
     lead = ["fsos", "--checkpoint", "none.msgpack"] if module == "eval_cli" else []
