@@ -200,12 +200,49 @@ Phases, each timed; any failure exits non-zero and prints no result:
    world of two; nothing wider than one card is measured, and no NCCL time
    across cards. 13b prints no speed.
 
+14. the host-side tools: (a) the live loop: ``serve --fused --weights
+   random --yolo-thresh 0.0`` behind a hub in this process, first
+   ``RECORD_FRAMES`` frames through ``run_source`` into an
+   ``ElementsRecorder`` whose ``.npz`` must read back, then ``python -m
+   isbfsar_tpu_torch.runtime.source_cli --source synthetic`` as a
+   subprocess with SERVE_SCRIPT on its stdin (each command once the one
+   before it has its ``log:`` line on the console and ``SPACING`` frames
+   have passed): every log line must come, both exit 0, and the service
+   must count launches of both kernels; (b) ``Stopwatch`` spans around
+   ``PROFILE_STEPS`` graphed steps of (d)'s pipeline, a ``trace()`` whose
+   file names one of the port's kernels, ``device_memory_stats()`` with one
+   entry for the card; (c) ``grad_cam`` on a ResNet-50 at 224, batch 4,
+   float32 without TF32, and ``explain_episode`` at the production
+   ``ARConfig``, card against CPU from one seeded init (``TOL_CAM``,
+   ``TOL_EXPLAIN_LOGITS``; the chosen class and the top pair equal where
+   the runner-up trails by more than ``EXPLAIN_TIE``), with their wall
+   times; (d) the reference-checkpoint importers on the full-width upstream
+   layouts of ``tests/fixtures_upstream.py`` (Tianxiaomo YOLOv4 with 80
+   classes, the Keras-order EfficientNetV2-L variables, torchvision
+   ResNet-50, the TRXOS ``DISC.pth`` keys), He-scaled from a seed; the
+   headline ``FusedPipeline`` (640x480 I420, focus on) built from the
+   imported YOLOv4, EfficientNetV2-L and TRXOS runs ``IMPORT_STEPS``
+   graphed steps equal to the eager oracle, every output finite, each
+   kernel launched once a step, and the imported ResNet-50 a forward; (e)
+   the ``tools/demo_tracking`` twin (``pose-ci-motions``, learn two
+   actions, then track; float32, where the tool's default is bf16 as
+   JAX's) on the card and on the CPU: every frame's recognized label
+   equal, the I420 kernel once a step and the focus kernel never (focus is
+   off); (f) the ``examples/`` twins, cut: ``train_fsos_demo`` to one epoch
+   of ``FSOS_DEMO_TASKS`` tasks and one FSOS repeat (no kernel), and
+   ``serve_multistream_demo`` to ``MULTI_DEMO_TICKS`` ticks at S=4 over
+   ``make_mesh(1)`` on NCCL at full width with focus off (the I420 kernel
+   once a tick). The card has no cv2 and no matplotlib, so the TCP stream,
+   the plots, ``render_episode``, the GUI and the filmstrip are checked
+   only by the CPU tests (tests/test_torch_visualizer.py, test_torch_stream.py,
+   test_torch_plots.py, test_torch_host_demos.py).
+
 The four weight files are required (``pose-ci-motions``, ``focus-ci``, the
 ``pose-prod-256-calib`` delta and ``pose-diverse-256``): a missing one
 fails the run; phase 11 reads no other.
 
 The ``[phases]`` line gives each phase's seconds, and the ``kernels``
-line each kernel's launches by path, the paths of phases 10-12 included. The
+line each kernel's launches by path, the paths of phases 10-14 included. The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``.
 """
@@ -491,6 +528,41 @@ TOL_PAR = {"rgb": {"param_rel_diff": 0.025, "max_stats_diff": 2.5e-5},
 PAR_RGB_BATCH, PAR_SK_BATCH = 2, 32
 PAR_TIMED_STEPS = 5
 PAR_TICKS = 32  # 13a's multi-stream drive: two (S, B) blocks
+# Phase 14, the host-side tools. (a) The live loop: ``source_cli`` as a
+# subprocess against ``serve --fused`` behind a hub in this process, SERVE_SCRIPT
+# on its stdin with SPACING frames between commands; before it, RECORD_FRAMES
+# frames through run_source into an ElementsRecorder. LIVE_DEADLINE_S covers
+# the service's start and both drives.
+RECORD_FRAMES = 24
+LIVE_DEADLINE_S = 300
+# (b) Profiling: Stopwatch spans around PROFILE_STEPS graphed steps of (d)'s
+# pipeline, and a trace of TRACE_STEPS of them plus one eager step.
+PROFILE_STEPS, TRACE_STEPS = 20, 3
+PORT_KERNEL_NAMES = ("fused_i420_kernel", "focus_geometry_kernel")
+# (c) Grad-CAM on a ResNet-50 at 224, batch 4, a CAM_CLASSES head, float32
+# without TF32, from one seeded init on whitened-like (normal) images, and
+# explain_episode at the production ARConfig, card against CPU. Every CAM
+# must be lit on at least half its cells (uniform [0, 1] images leave a
+# random net's CAMs all but zero, and a comparison of zeros proves
+# nothing). Limits about four times what an NVIDIA H100 80GB HBM3 at 700 W
+# read: the CAMs (each in [0, 1]) 6.85e-6, explain_episode's logits 3.81e-6
+# and 5.72e-6 of about 20 on two episodes.
+CAM_CLASSES, CAM_BATCH, CAM_SIZE, CAM_SEED = 5, 4, 224, 1
+TOL_CAM = 2.5e-5
+TOL_EXPLAIN_LOGITS = 2.5e-5
+EXPLAIN_TIE = 1e-3  # the chosen class and the top pair are held where the runner-up trails by more
+# (d) The importers at full width: the upstream layouts of tests/fixtures_upstream.py,
+# He-scaled normal conv and dense weights from IMPORT_SEED, BatchNorm at identity
+# (gamma 1, beta 0, mean 0, var 1), biases 0; the headline FusedPipeline built from
+# the imported YOLOv4, EfficientNetV2-L and TRXOS (the MetrABS head random from seed
+# 0, focus-ci for focus) runs IMPORT_STEPS graphed steps on the 640x480 I420 frames,
+# held to the eager oracle exactly (TOL_GRAPH); the imported ResNet-50 runs a forward.
+IMPORT_SEED, IMPORT_STEPS = 0, 20
+# (f) The example twins, cut to fit: train_fsos_demo one epoch of FSOS_DEMO_TASKS
+# episodes at batch 8 and one FSOS repeat (from 30 epochs of 64 and 5 repeats);
+# serve_multistream_demo MULTI_DEMO_TICKS ticks at S=STREAMS over make_mesh(1) on
+# NCCL (from 32 ticks over every device).
+FSOS_DEMO_TASKS, MULTI_DEMO_TICKS = 16, 24
 
 
 def log(msg: str) -> None:
@@ -2639,6 +2711,436 @@ def run_parallel(card: str) -> dict:
     return by_path
 
 
+def drive_source_cli(host: str, port: int, script, spacing: int, deadline_s: float,
+                     max_frames: int = 100_000) -> tuple:
+    """``python -m isbfsar_tpu_torch.runtime.source_cli`` on synthetic frames
+    against the hub at host:port, with ``script``'s commands written to its
+    stdin: each once the previous one's log line is on the console and
+    ``spacing`` frames have passed (after ``add <name>``, also once <name>
+    scores). Returns (console lines, [(command, frame)], exit code)."""
+    import queue
+
+    cmd = [sys.executable, "-m", "isbfsar_tpu_torch.runtime.source_cli", "--hub", host,
+           "--hub-port", str(port), "--source", "synthetic", "--max-frames", str(max_frames)]
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, bufsize=1,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines: "queue.Queue" = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    out, sent = [], []
+    frames = since = 0
+    want, scored, step, name = None, True, 0, None
+    deadline = time.monotonic() + deadline_s
+    try:
+        while True:
+            if step < len(script) and since >= spacing and want is None and scored:
+                command, want = script[step]
+                proc.stdin.write(command + "\n")
+                proc.stdin.flush()
+                sent.append((command, frames))
+                step, since = step + 1, 0
+                name = command.split()[1] if command.startswith("add ") else None
+                scored = name is None
+            line = lines.get(timeout=max(deadline - time.monotonic(), 0.01))
+            if line is None:
+                break
+            out.append(line)
+            if line.startswith("fps"):
+                frames, since = frames + 1, since + 1
+            elif want and line.startswith("  log: " + want):
+                want = None
+            elif name and line.startswith(f"  {name} "):
+                scored = True
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except Exception as e:  # queue.Empty or TimeoutExpired: the deadline
+        raise AssertionError(f"source_cli did not finish its script within {deadline_s} s "
+                             f"(sent {sent}, {frames} frames; last lines {out[-5:]})") from e
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return out, sent, rc
+
+
+def check_console(lines: list, sent: list, rc: int, script) -> None:
+    """source_cli's console: exit 0, every command's log line, its last line."""
+    logs = [ln[len("  log: "):] for ln in lines if ln.startswith("  log: ")]
+    missing = [want for _, want in script if want and not any(x.startswith(want) for x in logs)]
+    if rc != 0 or missing or len(sent) != len(script) or not lines[-1].startswith(
+            "[isbfsar-tpu] source done after"):
+        raise AssertionError(f"source_cli: exit {rc}, sent {sent}, missing log lines {missing}; "
+                             f"last lines {lines[-5:]}")
+
+
+def run_live_loop(card: str) -> dict:
+    """Phase 14a: an ElementsRecorder through run_source, then source_cli with
+    the command script, against ``serve --fused`` on the card (640x480 I420,
+    random weights, gate 0.0, focus on); returns the service's kernel
+    launches."""
+    from isbfsar_tpu_torch.runtime.ipc import QueueHub
+    from isbfsar_tpu_torch.runtime.source import SyntheticSource, run_source
+    from isbfsar_tpu_torch.runtime.visualizer import ElementsRecorder
+
+    hub = QueueHub(("127.0.0.1", 0)).start_background()
+    host, port = hub._server.address
+    work = tempfile.mkdtemp(prefix="isbfsar_live_")
+    cmd = [sys.executable, "-m", "isbfsar_tpu_torch.runtime.serve", "--fused", "--weights",
+           "random", "--yolo-thresh", "0.0", "--save-dir", os.path.join(work, "saved"), "--hub",
+           host, "--hub-port", str(port)]
+    t0 = time.perf_counter()
+    rec_path, pushed = os.path.join(work, "elements.npz"), []
+    with open(os.path.join(work, "serve.log"), "w") as log_file:
+        proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            recorder = ElementsRecorder(rec_path)
+            feeder = threading.Thread(target=lambda: pushed.append(run_source(
+                SyntheticSource(640, 480), hub_host=host, hub_port=port, visualizer=recorder,
+                max_frames=RECORD_FRAMES)), daemon=True)
+            feeder.start()
+            deadline = time.perf_counter() + LIVE_DEADLINE_S
+            while feeder.is_alive() and proc.poll() is None and time.perf_counter() < deadline:
+                feeder.join(timeout=1.0)
+            if feeder.is_alive() or pushed != [RECORD_FRAMES]:
+                raise AssertionError(f"the recorder's run_source did not finish ({pushed}; "
+                                     f"service exit {proc.poll()})")
+            recorder.flush()
+            t_rec = time.perf_counter() - t0
+            lines, sent, rc = drive_source_cli(host, port, SERVE_SCRIPT, SPACING,
+                                               deadline - time.perf_counter())
+            service_rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            hub.stop()
+    with open(os.path.join(work, "serve.log")) as f:
+        service_log = f.read()
+    seconds = time.perf_counter() - t0
+    try:
+        check_console(lines, sent, rc, SERVE_SCRIPT)
+        if service_rc != 0:
+            raise AssertionError(f"the service exited {service_rc}")
+    except AssertionError:
+        log("[host] service log:\n" + service_log[-4000:])
+        raise
+    frames = np.load(rec_path, allow_pickle=True)["frames"]
+    shutil.rmtree(work, ignore_errors=True)
+    if len(frames) != RECORD_FRAMES or not all("fps" in f for f in frames):
+        raise AssertionError(f"the recorder's .npz holds {len(frames)} frames, not {RECORD_FRAMES}")
+    posed = [f for f in frames if "pose" in f]
+    if not posed or not all(np.isfinite(f["pose"]).all() and f["pose"].shape == (30, 3)
+                            for f in posed):
+        raise AssertionError("the recorded frames hold no finite (30, 3) pose")
+    counts = None
+    for line in service_log.splitlines():
+        if "kernel launches while serving:" in line:
+            counts = json.loads(line.split("serving: ", 1)[1].replace("'", '"'))
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"the live loop's service launched a kernel no time: {counts}")
+    logs = [ln[len("  log: "):] for ln in lines if ln.startswith("  log: ")]
+    log(f"[host] 14a ElementsRecorder: {RECORD_FRAMES} frames through run_source in "
+        f"{t_rec:.1f} s with the service's start, read back ({len(posed)} with a pose); "
+        f"source_cli: {sum(ln.startswith('fps') for ln in lines)} console frames, commands at "
+        f"frames {sent}, logs {sorted(set(logs) - {'WAIT...', 'GO!'}, key=logs.index)[:7]}, "
+        f"exit 0; service exit 0, launches {counts}; {seconds:.1f} s; {card}")
+    return counts
+
+
+def he_fill(spec, seed: int, tf: bool = False) -> list:
+    """Seeded upstream tensors: He-scaled normal conv and dense weights,
+    BatchNorm at identity, biases and buffers 0."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for key, shape in spec:
+        leaf = key.rsplit("/" if tf else ".", 1)[-1].split(":")[0]
+        if leaf in ("weight", "kernel", "depthwise_kernel") and len(shape) >= 2:
+            if tf:  # HWIO; depthwise HWC1
+                fan_in = int(np.prod(shape[:-1])) if leaf == "kernel" else int(np.prod(shape[:2]))
+            else:  # OIHW or (out, in)
+                fan_in = int(np.prod(shape[1:]))
+            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / fan_in))
+        elif leaf in ("weight", "gamma", "running_var", "moving_variance"):
+            arr = np.ones(shape, np.float32)
+        else:
+            arr = np.zeros(shape, np.float32)
+        out.append((key, arr))
+    return out
+
+
+def imported_weights() -> dict:
+    """The four upstream layouts at full width, seeded, through the port's
+    importers: Flax-layout variables of YOLOv4, EfficientNetV2-L, ResNet-50
+    and TRXOS (skeleton)."""
+    from isbfsar_tpu_torch.models.effnetv2 import EfficientNetV2
+    from isbfsar_tpu_torch.models.yolov4 import YOLOv4
+    from isbfsar_tpu_torch.utils import checkpoint as ckpt
+    from tests.fixtures_upstream import (effnetv2_l_tf_variables_spec,
+                                         tianxiaomo_yolov4_state_dict_spec,
+                                         torchvision_resnet_state_dict_spec, trxos_state_dict_spec)
+
+    yolo_sd = dict(he_fill(tianxiaomo_yolov4_state_dict_spec(80), IMPORT_SEED))
+    return {
+        "yolo": ckpt.import_yolov4_tianxiaomo(
+            yolo_sd, ckpt.template_variables(YOLOv4(dtype=torch.float32))),
+        "bbone": ckpt.import_metrabs_effnetv2(
+            he_fill(effnetv2_l_tf_variables_spec(), IMPORT_SEED + 1, tf=True),
+            ckpt.template_variables(EfficientNetV2(dtype=torch.float32))),
+        "resnet": ckpt.import_resnet_torch(
+            dict(he_fill(torchvision_resnet_state_dict_spec(50), IMPORT_SEED + 2))),
+        "trxos": ckpt.import_trxos_full(
+            dict(he_fill(trxos_state_dict_spec("skeleton"), IMPORT_SEED + 3)), "skeleton"),
+    }
+
+
+def run_imported(card: str, device: str = "cuda") -> tuple:
+    """Phase 14d: the headline FusedPipeline from imported weights, 20
+    graphed steps against the eager oracle; returns (pipeline, launches)."""
+    from isbfsar_tpu_torch.ar.recognizer import ActionRecognizer
+    from isbfsar_tpu_torch.configs import PipelineConfig
+    from isbfsar_tpu_torch.focus.detector import FocusDetector
+    from isbfsar_tpu_torch.hpe.estimator import HumanPoseEstimator
+    from isbfsar_tpu_torch.models.resnet import resnet50
+    from isbfsar_tpu_torch.pipeline import FusedPipeline
+    from isbfsar_tpu_torch.profile_slice import train_support
+
+    t0 = time.perf_counter()
+    imported = imported_weights()
+    t_import = time.perf_counter() - t0
+    config = PipelineConfig.for_input("skeleton")
+    hpe = HumanPoseEstimator(config.hpe, config.intrinsics, seed=0, device=device)
+    for net in ("yolo", "bbone"):
+        hpe.nets[net].load_state_dict(weights.convert_variables(imported[net]), strict=True)
+    ar = ActionRecognizer(config.ar, params=imported["trxos"], device=device)
+    focus = FocusDetector(config.focus, config.intrinsics, params=weights.load_bundle("focus-ci"),
+                          device=device)
+    pipe = FusedPipeline(config, hpe=hpe, ar=ar, focus=focus, cuda_graphs=True, device=device)
+    train_support(pipe)
+    eager = twin(pipe, cuda_graphs=False)
+    rn = resnet50(torch.float32, num_classes=1000)
+    rn.load_state_dict(weights.convert_variables(imported["resnet"]), strict=True)
+    with torch.no_grad():
+        logits = rn.to(device).eval()(torch.rand(2, 3, 224, 224, device=device))
+    if logits.shape != (2, 1000) or not torch.isfinite(logits).all():
+        raise AssertionError("the imported ResNet-50's logits are not finite")
+    clip = slice_frames()
+    frames = [clip[i % len(clip)] for i in range(IMPORT_STEPS)]
+    for p in (pipe, eager):  # cuDNN's choices; the B=1 graph's capture
+        for f in frames[:3]:
+            p.step(f)
+        p.start()
+    zero_launches()
+    seq = [pipe.step(f) for f in frames]
+    counts = launches()
+    eager_seq = [eager.step(f) for f in frames]
+    check_launches("imported-weights FusedPipeline", counts, IMPORT_STEPS)
+    for out in seq:
+        for key, v in out.items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"non-finite {key!r} from the imported weights")
+    check_close("imported: CUDA graphs vs eager, step", seq, eager_seq, TOL_GRAPH)
+    log(f"[host] 14d imported Tianxiaomo YOLOv4 (80 classes), MetrABS EfficientNetV2-L "
+        f"(Keras order), torchvision ResNet-50 and TRXOS DISC.pth in {t_import:.1f} s; "
+        f"{IMPORT_STEPS} graphed steps, {sum(int(o['conf'] > 0) for o in seq)} fired at the "
+        f"0.3 gate, a face on {sum(int(o['f_found'] > 0) for o in seq)}; launches {counts}; "
+        f"ResNet-50 logits max |x| {float(logits.abs().max()):.3g}; {card}")
+    return pipe, counts
+
+
+def run_profiling(card: str, pipe) -> None:
+    """Phase 14b: Stopwatch spans, a trace, the card's memory."""
+    from isbfsar_tpu_torch.utils.profiling import Stopwatch, device_memory_stats, trace
+
+    clip = slice_frames()
+    sw = Stopwatch()
+    for i in range(PROFILE_STEPS):
+        with sw.span("step"):
+            pipe.step(clip[i % len(clip)])  # returns host arrays: the card has finished
+    span = sw.summary()["step"]
+    eager = twin(pipe, cuda_graphs=False)
+    work = tempfile.mkdtemp(prefix="isbfsar_trace_")
+    try:
+        with trace(work) as prof:
+            for i in range(TRACE_STEPS):
+                pipe.step(clip[i])
+            eager.step(clip[0])
+        (name,) = os.listdir(work)
+        with open(os.path.join(work, name)) as f:
+            text = f.read()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    named = [k for k in PORT_KERNEL_NAMES if k in text]
+    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    mem = device_memory_stats()
+    log(f"[host] 14b Stopwatch over {span['count']} graphed steps: mean {span['mean_ms']:.3f} ms, "
+        f"p50 {span['p50_ms']:.3f} ms, p99 {span['p99_ms']:.3f} ms; trace {len(text)} bytes "
+        f"naming {named}, {device_us / 1e3:.3f} device ms in key_averages; memory {mem}; {card}")
+    if span["count"] != PROFILE_STEPS or not text or not named:
+        raise AssertionError(f"profiling: {span['count']} spans, a {len(text)}-byte trace "
+                             f"naming {named}")
+    if list(mem) != ["cuda:0"] or not mem["cuda:0"]["bytes_in_use_mb"] > 0:
+        raise AssertionError(f"device_memory_stats() gave {mem}")
+
+
+def run_explain(card: str, device: str = "cuda") -> None:
+    """Phase 14c: Grad-CAM and explain_episode, card against CPU."""
+    from isbfsar_tpu_torch.configs import ARConfig
+    from isbfsar_tpu_torch.models.layers import init_random
+    from isbfsar_tpu_torch.models.resnet import resnet50
+    from isbfsar_tpu_torch.models.trx import TRXOS
+    from isbfsar_tpu_torch.train.explain import explain_episode, grad_cam
+    from isbfsar_tpu_torch.weights import to_flax_variables
+
+    rng = np.random.default_rng(CAM_SEED)
+    model = resnet50(torch.float32, num_classes=CAM_CLASSES, enable_cam=True)
+    init_random(model, torch.Generator().manual_seed(CAM_SEED))
+    variables = to_flax_variables(model.state_dict())
+    images = rng.standard_normal((CAM_BATCH, CAM_SIZE, CAM_SIZE, 3), dtype=np.float32)
+    walls = []
+    for _ in range(2):  # the first call includes cuDNN's algorithm choice
+        t = time.perf_counter()
+        cam = grad_cam(variables, images, class_idx=1, n_classes=CAM_CLASSES, device=device)
+        walls.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    cam_cpu = grad_cam(variables, images, class_idx=1, n_classes=CAM_CLASSES, device="cpu")
+    cpu_wall = time.perf_counter() - t
+    err = float(np.abs(cam - cam_cpu).max())
+    lit = (cam_cpu > 0).mean(axis=(1, 2))
+    log(f"[host] 14c grad_cam ResNet-50 at {CAM_SIZE}, batch {CAM_BATCH}, float32 without TF32: "
+        f"card vs CPU max|diff| {err:.3g} (limit {TOL_CAM}), CAM {cam.shape}, positive "
+        f"shares {np.round(lit, 2).tolist()}; wall "
+        f"{walls[0] * 1e3:.1f} ms first, {walls[1] * 1e3:.1f} ms second, CPU "
+        f"{cpu_wall * 1e3:.1f} ms; {card}")
+    if not (np.isfinite(cam).all() and cam.shape == (CAM_BATCH, 7, 7) and err <= TOL_CAM):
+        raise AssertionError(f"grad_cam: card vs CPU {err} > {TOL_CAM} or a bad CAM")
+    if not (lit.min() >= 0.5 and cam_cpu.max(axis=(1, 2)).min() > 0.99):
+        raise AssertionError(f"grad_cam: a degenerate CAM (positive shares {lit}), which "
+                             "would compare nothing")
+
+    cfg = ARConfig()
+    trx = TRXOS(cfg)
+    init_random(trx, torch.Generator().manual_seed(1))
+    params = to_flax_variables(trx.state_dict())
+    support = {"sk": rng.normal(size=(1, cfg.way, cfg.seq_len, 90)).astype(np.float32)}
+    query = {"sk": rng.normal(size=(1, cfg.seq_len, 90)).astype(np.float32)}
+    got = explain_episode(cfg, params, support, query, device=device)
+    want = explain_episode(cfg, params, support, query, device="cpu")
+    err = float(np.abs(got["logits"] - want["logits"]).max())
+    gap = float(np.diff(np.sort(want["logits"])[-2:])[0])
+    log(f"[host] 14c explain_episode at the production ARConfig: logits max|diff| {err:.3g} "
+        f"(limit {TOL_EXPLAIN_LOGITS}), is_true {abs(got['is_true'] - want['is_true']):.3g}, "
+        f"chosen {got['chosen_class']} / {want['chosen_class']} with the runner-up {gap:.3g} "
+        f"behind, top pair {got['top_attention_pairs'][0]}")
+    if err > TOL_EXPLAIN_LOGITS:
+        raise AssertionError(f"explain_episode logits: {err} > {TOL_EXPLAIN_LOGITS}")
+    top = lambda r: (r["chosen_class"], r["top_attention_pairs"][0]["query_frames"],
+                     r["top_attention_pairs"][0]["support_frames"])
+    if gap > EXPLAIN_TIE and top(got) != top(want):
+        raise AssertionError(f"explain_episode: card {top(got)} vs CPU {top(want)}")
+
+
+def run_demo_twin(card: str, device: str = "cuda") -> dict:
+    """Phase 14e: the demo_tracking twin on the card and on the CPU, float32
+    (the tool's default is bf16, as JAX's); the recognized label of every
+    frame must be equal. Returns the card run's launches."""
+    from isbfsar_tpu_torch.tools import demo_tracking as demo
+
+    runs, counts, walls = {}, None, {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        t = time.perf_counter()
+        pipe = demo.build_demo(dev, dtype="float32")
+        zero_launches()
+        demo.learn(pipe, verbose=False)
+        clips = demo.track(pipe, verbose=False)
+        if where == "card":
+            counts = launches()
+        walls[where] = time.perf_counter() - t
+        runs[where] = clips
+    labels = {d: [c["labels"] for c in clips] for d, clips in runs.items()}
+    steps = 2 * 2 * 16 + sum(len(x) for x in labels["card"])  # learn 2 clips of 32, then track
+    log(f"[host] 14e demo_tracking twin (pose-ci-motions, float32): card "
+        f"{[(c['motion'], c['pred'], c['votes']) for c in runs['card']]}, CPU "
+        f"{[(c['motion'], c['pred'], c['votes']) for c in runs['cpu']]}; {steps} steps, launches "
+        f"{counts}; {walls['card']:.1f} s card, {walls['cpu']:.1f} s CPU")
+    if labels["card"] != labels["cpu"]:
+        raise AssertionError(f"demo twin: card labels {labels['card']} != CPU {labels['cpu']}")
+    if [c["pred"] for c in runs["card"]] != [c["motion"] for c in runs["card"]]:
+        raise AssertionError(f"demo twin: recognized {[c['pred'] for c in runs['card']]}")
+    check_launches("demo_tracking twin", counts,
+                   {"fused_i420_inputs": steps, "focus_geometry": 0})
+    return counts
+
+
+def run_example_twins(card: str, device: str = "cuda") -> dict:
+    """Phase 14f: train_fsos_demo and serve_multistream_demo on the card, cut
+    (see FSOS_DEMO_TASKS); returns each path's launches."""
+    import torch.distributed as dist
+
+    from isbfsar_tpu_torch.examples import serve_multistream_demo, train_fsos_demo
+
+    by_path = {}
+    work = tempfile.mkdtemp(prefix="isbfsar_examples_")
+    try:
+        t = time.perf_counter()
+        zero_launches()
+        res = train_fsos_demo.run_demo(work, epochs=1, n_task=FSOS_DEMO_TASKS, batch_size=8,
+                                       fsos_repeats=1, device=device)
+        by_path["train_fsos_demo twin"] = launches()
+        check_launches("train_fsos_demo twin", by_path["train_fsos_demo twin"], 0)
+        loss = res["epochs"][0]["train/fs_loss"]
+        if not np.isfinite(loss) or "FSOS-ACC" not in res["fsos"]:
+            raise AssertionError(f"train_fsos_demo: loss {loss}, FSOS {res['fsos']}")
+        log(f"[host] 14f train_fsos_demo (1 epoch of {FSOS_DEMO_TASKS} tasks, 1 FSOS repeat): "
+            f"fs_loss {loss:.3f}, FSOS {res['fsos']} in {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    t = time.perf_counter()
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(prefix="demo_"), "store"), 1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", store=store, rank=0,
+                            world_size=1)
+    try:
+        zero_launches()
+        res = serve_multistream_demo.run_demo(streams=STREAMS, frames=MULTI_DEMO_TICKS,
+                                              device=device)
+        by_path["serve_multistream_demo twin"] = counts = launches()
+    finally:
+        dist.destroy_process_group()
+    check_launches("serve_multistream_demo twin", counts,
+                   {"fused_i420_inputs": MULTI_DEMO_TICKS, "focus_geometry": 0})
+    scored = [bool(el.get("actions")) for el in res["elements"]]
+    if not (res["mesh"] and res["n_streams"] == STREAMS and len(res["elements"]) == STREAMS):
+        raise AssertionError(f"serve_multistream_demo: {res['n_streams']} streams, mesh "
+                             f"{res['mesh']}, {len(res['elements'])} decoded")
+    log(f"[host] 14f serve_multistream_demo over make_mesh(1) on NCCL, S={STREAMS}, "
+        f"{MULTI_DEMO_TICKS} ticks at full width, focus off: {res['seconds']:.2f} s "
+        f"({MULTI_DEMO_TICKS * STREAMS / res['seconds']:.1f} stream-frames/s, graph capture "
+        f"included), {sum(scored)}/{STREAMS} streams scored on the last tick (random weights: "
+        f"a stream scores once its window holds 16 visible poses); launches {counts}; "
+        f"{time.perf_counter() - t:.1f} s; {card}")
+    return by_path
+
+
+def run_host_tools(card: str) -> dict:
+    """Phase 14: the host-side tools (see the module docstring)."""
+    by_path = {"source_cli + serve --fused (the live loop's service)": run_live_loop(card)}
+    pipe, counts = run_imported(card)
+    by_path["FusedPipeline from imported upstream weights"] = counts
+    run_profiling(card, pipe)
+    del pipe
+    run_explain(card)
+    by_path["demo_tracking twin"] = run_demo_twin(card)
+    by_path.update(run_example_twins(card))
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU", file=sys.stderr)
@@ -2698,6 +3200,9 @@ def main() -> int:
     t = time.perf_counter()
     by_path.update(run_parallel(card))
     phases["parallel"] = time.perf_counter() - t
+    t = time.perf_counter()
+    by_path.update(run_host_tools(card))
+    phases["host_tools"] = time.perf_counter() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
 
     kernels = [{"name": "fused_i420_inputs", "route": "cuda",

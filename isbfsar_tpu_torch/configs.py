@@ -115,7 +115,7 @@ class ARConfig:
     second_milestone: int = 10000
     eval_every_n_epoch: int = 10
     checkpoint_dir: Optional[str] = None
-    ckpt_backend: str = "msgpack"  # the port writes msgpack only
+    ckpt_backend: str = "msgpack"  # or "orbax" (utils/checkpoint.py)
     data_path: Optional[str] = None
     compute_dtype: str = "float32"
     remat: bool = False  # per-block rematerialization of the rgb extractor in training

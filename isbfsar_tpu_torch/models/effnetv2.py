@@ -12,7 +12,7 @@ backward pass, as the JAX net's ``nn.remat(MBConv)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -157,3 +157,66 @@ class MetrabsHead(nn.Module):
 
     def forward(self, feats):
         return self.conv_final(feats.permute(0, 2, 3, 1))
+
+
+# ------------------------------------------------- upstream weight mapping
+
+
+def metrabs_tf_name_map(stages: Sequence[StageSpec] = V2_L):
+    """Explicit automl-effnetv2 TF layer-scope -> flax module-path map.
+
+    The MetrABS checkpoint's backbone is google-automl's EfficientNetV2
+    (vendored at isarandi/metrabs src/backbones/efficientnet/
+    effnetv2_model.py; the reference extracts its variables with
+    ``model.crop_model.variables`` and pours them into a fresh Keras model
+    via ``set_weights``, reference setup/2_extract_bbone_heads.py:36-47).
+    TF layer scopes per that implementation:
+
+    - ``stem/conv2d`` + ``stem/tpu_batch_normalization``
+    - per block ``blocks_{i}`` (global index across stages):
+      MBConv: ``conv2d`` (expand) + ``tpu_batch_normalization``,
+      ``depthwise_conv2d`` + ``tpu_batch_normalization_1``,
+      ``se/conv2d`` (reduce) + ``se/conv2d_1`` (expand),
+      ``conv2d_1`` (project) + ``tpu_batch_normalization_2``.
+      Fused, expand!=1: ``conv2d`` (expand, kxk) + ``tpu_batch_normalization``,
+      ``conv2d_1`` (project 1x1) + ``tpu_batch_normalization_1``.
+      Fused, expand==1: ``conv2d`` (single kxk) + ``tpu_batch_normalization``.
+    - ``head/conv2d`` + ``head/tpu_batch_normalization``
+
+    Values are Flax module paths, which are the port's module names too.
+    Feed the result to ``utils.checkpoint.import_tf_name_map`` (it strips
+    the leading ``efficientnetv2-l/`` model scope automatically).
+    """
+    bn = "tpu_batch_normalization"
+    m = {
+        "stem/conv2d": ("stem_conv",),
+        f"stem/{bn}": ("stem_bn",),
+        "head/conv2d": ("head_conv",),
+        f"head/{bn}": ("head_bn",),
+    }
+    b = 0
+    for si, spec in enumerate(stages):
+        for bi in range(spec.blocks):
+            blk = f"blocks_{b}"
+            flax_blk = f"stage{si}_block{bi}"
+            if spec.fused:
+                if spec.expand != 1:
+                    m[f"{blk}/conv2d"] = (flax_blk, "expand_conv")
+                    m[f"{blk}/{bn}"] = (flax_blk, "expand_bn")
+                    m[f"{blk}/conv2d_1"] = (flax_blk, "project_conv")
+                    m[f"{blk}/{bn}_1"] = (flax_blk, "project_bn")
+                else:
+                    m[f"{blk}/conv2d"] = (flax_blk, "project_conv")
+                    m[f"{blk}/{bn}"] = (flax_blk, "project_bn")
+            else:
+                m[f"{blk}/conv2d"] = (flax_blk, "expand_conv")
+                m[f"{blk}/{bn}"] = (flax_blk, "expand_bn")
+                m[f"{blk}/depthwise_conv2d"] = (flax_blk, "depthwise_conv")
+                m[f"{blk}/{bn}_1"] = (flax_blk, "depthwise_bn")
+                if spec.se_ratio > 0:
+                    m[f"{blk}/se/conv2d"] = (flax_blk, "se", "reduce")
+                    m[f"{blk}/se/conv2d_1"] = (flax_blk, "se", "expand")
+                m[f"{blk}/conv2d_1"] = (flax_blk, "project_conv")
+                m[f"{blk}/{bn}_2"] = (flax_blk, "project_bn")
+            b += 1
+    return m

@@ -92,13 +92,23 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """(b, 3, s, s) -> (b, width * 2**(stages - 1) * block.expansion)
-    float32 pooled features."""
+    float32 pooled features, or (b, num_classes) logits of a Dense ``fc``
+    on them where ``num_classes`` is set.
+
+    ``enable_cam`` is JAX's Grad-CAM capture (``train/explain.py``): the
+    last stage's activation is cast to float32 and pooled from there, and
+    ``forward`` returns ``(output, activation)`` with the (b, c, h, w)
+    activation inside the autograd graph, so ``torch.autograd.grad`` of a
+    score against it is d(score)/d(activation), what Flax's sow/perturb
+    pair gives."""
 
     def __init__(self, stage_sizes: Sequence[int], block=BasicBlock, width: int = 64,
-                 dtype: torch.dtype = torch.bfloat16, remat: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+                 num_classes: int = 0, enable_cam: bool = False):
         super().__init__()
         self.dtype = dtype
         self.remat = remat
+        self.enable_cam = enable_cam
         self.conv1 = Conv(3, width, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(width, _EPS)
         self.blocks = []
@@ -110,6 +120,7 @@ class ResNet(nn.Module):
                 setattr(self, name, block(cin, width * 2**i, stride))
                 self.blocks.append(name)
                 cin = width * 2**i * block.expansion
+        self.fc = nn.Linear(cin, num_classes) if num_classes else None
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 stats: Optional[list] = None) -> torch.Tensor:
@@ -118,14 +129,24 @@ class ResNet(nn.Module):
         for name in self.blocks:
             block = getattr(self, name)
             x = train_block(block, x, self.remat, stats) if train else block(x)
-        # the mean accumulates in float32 and is rounded to the compute type,
-        # as jnp.mean does for bfloat16
-        return x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).to(torch.float32)
+        if self.enable_cam:
+            act = x.to(torch.float32)
+            out = act.mean(dim=(2, 3))
+        else:
+            # the mean accumulates in float32 and is rounded to the compute
+            # type, as jnp.mean does for bfloat16
+            out = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).to(torch.float32)
+        if self.fc is not None:
+            out = self.fc(out)
+        return (out, act) if self.enable_cam else out
 
 
-def resnet18(dtype: torch.dtype = torch.bfloat16) -> ResNet:
-    return ResNet(stage_sizes=(2, 2, 2, 2), block=BasicBlock, dtype=dtype)
+def resnet18(dtype: torch.dtype = torch.bfloat16, num_classes: int = 0) -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), block=BasicBlock, dtype=dtype,
+                  num_classes=num_classes)
 
 
-def resnet50(dtype: torch.dtype = torch.bfloat16, remat: bool = False) -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), block=Bottleneck, dtype=dtype, remat=remat)
+def resnet50(dtype: torch.dtype = torch.bfloat16, remat: bool = False, num_classes: int = 0,
+             enable_cam: bool = False) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block=Bottleneck, dtype=dtype, remat=remat,
+                  num_classes=num_classes, enable_cam=enable_cam)

@@ -232,3 +232,94 @@ class YOLOv4(nn.Module):
             all_boxes.append(bx)
             all_confs.append(cf)
         return torch.cat(all_boxes, dim=1)[:, :, None, :], torch.cat(all_confs, dim=1)
+
+
+# ------------------------------------------------- upstream weight mapping
+
+# Residual-block counts of the five CSP stages (Tianxiaomo DownSample1-5).
+_TIANXIAOMO_RES = (1, 2, 8, 8, 4)
+
+
+def tianxiaomo_name_map(neck_prefix: str = "neek"):
+    """Explicit Tianxiaomo pytorch-YOLOv4 -> flax module-path map.
+
+    Keys are torch module prefixes of the upstream ``Yolov4`` class (the
+    checkpoint the reference's engine toolchain consumes, reference
+    modules/hpe/setup/1_extract_yolo_onnx.py:1-64): every
+    ``Conv_Bn_Activation`` is an ``nn.Sequential`` named ``conv`` with
+    ``0``=Conv2d, ``1``=BatchNorm2d (absent on the linear detection heads).
+    Values are the Flax module paths, which are the port's module names
+    too. Feed the result to ``utils.checkpoint.import_named_convnet``.
+
+    Upstream registration (and forward graph) audited per module:
+
+    - ``down1``: conv1=stem; conv2=downsample; conv3=route (concatenated
+      second); conv4=trunk-in; conv5/conv6=residual 1x1/3x3; conv7=trunk-out;
+      conv8=merge.
+    - ``down2..down5``: conv1=downsample, conv2=route, conv3=trunk-in,
+      ``resblock.module_list.{i}.{0,1}``=residual 1x1/3x3, conv4=trunk-out,
+      conv5=merge.
+    - ``neek`` (upstream typo for neck; the reference renames it to
+      ``neck`` in 1_extract_yolo_onnx.py:34-38 — pass ``neck_prefix="neck"``
+      for checkpoints that went through that rewrite): conv1-3 pre-SPP,
+      conv4-6 post-SPP, conv7 pre-upsample-1, conv8 lateral-d4, conv9-13
+      stride-16 stack, conv14 pre-upsample-2, conv15 lateral-d3, conv16-20
+      stride-8 stack.
+    - ``head``: conv1/conv2 scale-1 head, conv3 downsample, conv4-8 stack,
+      conv9/conv10 scale-2 head, conv11 downsample, conv12-16 stack,
+      conv17/conv18 scale-3 head.
+    """
+    m = {}
+
+    def cba(torch_name, *flax_path, bn=True):
+        m[f"{torch_name}.conv.0"] = tuple(flax_path) + ("conv",)
+        if bn:
+            m[f"{torch_name}.conv.1"] = tuple(flax_path) + ("bn",)
+
+    # --- backbone
+    cba("down1.conv1", "backbone", "stem")
+    stage_parts = [("conv1", "down"), ("conv2", "route"), ("conv3", "trunk_in"),
+                   ("conv4", "trunk_out"), ("conv5", "merge")]
+    down1_parts = [("conv2", "down"), ("conv3", "route"), ("conv4", "trunk_in"),
+                   ("conv7", "trunk_out"), ("conv8", "merge")]
+    for s, n_res in enumerate(_TIANXIAOMO_RES, start=1):
+        stage = f"stage{s}"
+        if s == 1:
+            for tname, fname in down1_parts:
+                cba(f"down1.{tname}", "backbone", stage, fname)
+            cba("down1.conv5", "backbone", stage, "res0", "conv1")
+            cba("down1.conv6", "backbone", stage, "res0", "conv2")
+        else:
+            for tname, fname in stage_parts:
+                cba(f"down{s}.{tname}", "backbone", stage, fname)
+            for i in range(n_res):
+                cba(f"down{s}.resblock.module_list.{i}.0", "backbone", stage, f"res{i}", "conv1")
+                cba(f"down{s}.resblock.module_list.{i}.1", "backbone", stage, f"res{i}", "conv2")
+
+    # --- neck
+    neck = [
+        "pre_spp0", "pre_spp1", "pre_spp2",          # conv1-3
+        "post_spp0", "post_spp1", "post_spp2",       # conv4-6
+        "p5_up", "lat4",                              # conv7-8
+        "p4_0", "p4_1", "p4_2", "p4_3", "p4_4",      # conv9-13
+        "p4_up", "lat3",                              # conv14-15
+        "p3_0", "p3_1", "p3_2", "p3_3", "p3_4",      # conv16-20
+    ]
+    for i, fname in enumerate(neck, start=1):
+        cba(f"{neck_prefix}.conv{i}", "neck", fname)
+
+    # --- heads (conv2/10/18 are linear, bias, no bn)
+    head = [
+        ("conv1", "head1_conv", True), ("conv2", "head1_out", False),
+        ("conv3", "down4", True),
+        ("conv4", "h4_0", True), ("conv5", "h4_1", True), ("conv6", "h4_2", True),
+        ("conv7", "h4_3", True), ("conv8", "h4_4", True),
+        ("conv9", "head2_conv", True), ("conv10", "head2_out", False),
+        ("conv11", "down5", True),
+        ("conv12", "h5_0", True), ("conv13", "h5_1", True), ("conv14", "h5_2", True),
+        ("conv15", "h5_3", True), ("conv16", "h5_4", True),
+        ("conv17", "head3_conv", True), ("conv18", "head3_out", False),
+    ]
+    for tname, fname, bn in head:
+        cba(f"head.{tname}", fname, bn=bn)
+    return m

@@ -1,14 +1,15 @@
 """Evaluation CLI (port of ``isbfsar_tpu/train/eval_cli.py``):
 
     python -m isbfsar_tpu_torch.train.eval_cli fsos --data <queries> --exemplars <ex> \\
-        --checkpoint runs/trx/checkpoints/29.msgpack [--repeats 10] [--calibrate <train tree>]
+        --checkpoint runs/trx/checkpoints/29.msgpack [--repeats 10] [--calibrate <train tree>] \\
+        [--plot fsos.png]
     python -m isbfsar_tpu_torch.train.eval_cli episodic --data <queries> --checkpoint ...
     python -m isbfsar_tpu_torch.train.eval_cli confusion --data <queries> --exemplars <ex> \\
-        --checkpoint ...
+        --checkpoint ... [--plot cm.png]
 
 It reads a checkpoint of either package. ``--device`` defaults to ``cuda``
-and fails without a card. ``--plot`` needs matplotlib and is not ported
-(ROADMAP A.18).
+and fails without a card. ``--plot`` draws with matplotlib, which the card
+machine lacks: plot on a host that has it.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ def main(argv=None) -> int:
     parser.add_argument("--k", type=int, default=5)
     parser.add_argument("--repeats", type=int, default=10)
     parser.add_argument("--batch-size", type=int, default=8)
-    parser.add_argument("--plot", default=None, help="needs matplotlib (not ported)")
+    parser.add_argument("--plot", default=None,
+                        help="fsos and confusion modes: write the plot to this PNG (needs "
+                             "matplotlib)")
     parser.add_argument("--os-threshold", type=float, default=0.5,
                         help="open-set decision threshold for fsos mode (the reference "
                              "protocol's 0.5; pass a calibrate_os_threshold result to score "
@@ -55,10 +58,6 @@ def main(argv=None) -> int:
                         help="torch device to evaluate on (default cuda; no fallback to the CPU)")
     args = parser.parse_args(argv)
 
-    if args.plot:
-        print("[eval] --plot needs matplotlib, which the port does not use (ROADMAP A.18)",
-              file=sys.stderr)
-        return 2
     import torch
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
@@ -94,6 +93,10 @@ def main(argv=None) -> int:
                 f"fsos@{calib['os_threshold']}": summarize(
                     metrics_at_threshold(results["_raw"], calib["os_threshold"]))
             }))
+        if args.plot:
+            from isbfsar_tpu_torch.train.evals import plot_fsos
+
+            plot_fsos(results, args.plot)
     elif args.mode == "episodic":
         from isbfsar_tpu_torch.train.evals import episodic_test
 
@@ -101,12 +104,14 @@ def main(argv=None) -> int:
                                 device=args.device)
         print(json.dumps(metrics))
     else:
-        from isbfsar_tpu_torch.train.evals import discriminator_confusion
+        from isbfsar_tpu_torch.train.evals import discriminator_confusion, plot_confusion
 
         classes = list_classes(exemplars)
         matrix = discriminator_confusion(cfg, params, args.data, exemplars, classes,
                                          device=args.device)
         print(json.dumps({"classes": classes, "matrix": matrix.tolist()}))
+        if args.plot:
+            plot_confusion(matrix, classes, args.plot)
     return 0
 
 

@@ -6,9 +6,12 @@
   support set pinned to one class and the queries drawn from another, per
   (support, query) pair of classes.
 
-The plots (``plot_fsos``, ``plot_confusion``) need matplotlib and are not
-ported (ROADMAP A.18). :func:`load_model` and :func:`episode_forward` are
-shared with ``train/fsos.py``.
+- :func:`plot_fsos` and :func:`plot_confusion`: their PNGs, drawn by
+  matplotlib with the Agg backend, imported when called (host only: the
+  card machine has no matplotlib, and there they raise ``ImportError``).
+
+:func:`load_model` and :func:`episode_forward` are shared with
+``train/fsos.py``.
 """
 
 from __future__ import annotations
@@ -141,3 +144,40 @@ def discriminator_confusion(
                 scores.append(float(score[0]))
             matrix[i, j] = float(np.mean(scores)) if scores else np.nan
     return matrix
+
+
+def plot_fsos(results: Dict[str, List[float]], path: str) -> None:
+    """Bar plot of FSOS/FS/OS means +/- std (reference plot_fsos_graph.py)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    keys = [k for k in ("FSOS-ACC", "FS-ACC", "OS-ACC") if results.get(k)]
+    means = [float(np.mean(results[k])) for k in keys]
+    stds = [float(np.std(results[k])) for k in keys]
+    fig, ax = plt.subplots(figsize=(5, 3.5))
+    ax.bar(keys, means, yerr=stds, capsize=4)
+    ax.set_ylim(0, 1)
+    ax.set_ylabel("accuracy")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def plot_confusion(matrix: np.ndarray, classes: List[str], path: str) -> None:
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 5))
+    im = ax.imshow(matrix, vmin=0, vmax=1, cmap="viridis")
+    ax.set_xticks(range(len(classes)), classes, rotation=90, fontsize=6)
+    ax.set_yticks(range(len(classes)), classes, fontsize=6)
+    ax.set_xlabel("query class")
+    ax.set_ylabel("support class")
+    fig.colorbar(im)
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)

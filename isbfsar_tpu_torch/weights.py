@@ -312,6 +312,13 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]
     -> Flax variables ``{"params": ...}`` (plus ``"batch_stats"`` where the
     module has BatchNorm statistics), with CPU tensor leaves and keys in
     Flax's order."""
+    return _sorted(flax_tree(state_dict))
+
+
+def flax_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """:func:`to_flax_variables` with every level in the state dict's order:
+    the order its modules were registered in, which the order-based
+    importers of ``utils/checkpoint.py`` zip upstream weights against."""
     out: Dict[str, Dict] = {}
     for key, t in state_dict.items():
         *mod, name = key.split(".")
@@ -329,7 +336,7 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]
         for m in mod:
             node = node.setdefault(m, {})
         node[name] = t.contiguous()
-    return _sorted(out)
+    return out
 
 
 def _sorted(tree):

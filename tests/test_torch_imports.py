@@ -16,7 +16,11 @@ source, a 122-joint estimate with test-time augmentation, the extraction
 of a PNG clip, the full YOLO postprocessing and the offline One-Euro; then
 one step of each synthetic trainer (YOLO and heatmap with remat, the three
 focus trainers, the gaze crop through the plain geometry), a bundle hit of
-the parameter cache and the registry's ``verify``; then a DDP step, an FSDP2 step and the
+the parameter cache and the registry's ``verify``; then the host-side
+tools: ``device_memory_stats``, a ``Stopwatch`` span, ``top_attention_pairs``,
+a torchvision ResNet-18 through ``import_resnet_torch`` into the port's
+model, the console and the recorder, and every function that needs cv2,
+matplotlib or orbax raising ``ImportError``; then a DDP step, an FSDP2 step and the
 way-sharded matcher in one group of two rank processes started by
 ``parallel/launch.py::run_ranks``, which refuse the same imports."""
 
@@ -235,6 +239,68 @@ SCRIPT = textwrap.dedent(r"""
         summary = run_sweep(tmp + "/watch", grid=[SweepEntry("T", mg, "tiny")], batch_size=4,
                             log_dir=tmp + "/sweep_log", device="cpu")
         assert 0.0 <= summary["T"]["f1"] <= 1.0
+
+    # the host-side tools: what needs none of cv2, matplotlib and orbax runs
+    # here; each function that needs one raises ImportError, never a quiet
+    # fallback
+    import io
+    from isbfsar_tpu_torch.models.resnet import resnet18
+    from isbfsar_tpu_torch.runtime import stream
+    from isbfsar_tpu_torch.runtime.visualizer import (ConsoleVisualizer, ElementsRecorder,
+                                                      GUIVisualizer, MPLPosePrinter)
+    from isbfsar_tpu_torch.tools import demo_tracking
+    from isbfsar_tpu_torch.train import evals, qualitative
+    from isbfsar_tpu_torch.train.explain import render_cam_overlay, top_attention_pairs
+    from isbfsar_tpu_torch.utils import checkpoint as ck
+    from isbfsar_tpu_torch.utils.profiling import Stopwatch, device_memory_stats
+    from tests.fixtures_upstream import torchvision_resnet_state_dict_spec
+    assert device_memory_stats() == {}
+    sw = Stopwatch()
+    with sw.span("x"):
+        pass
+    assert sw.summary()["x"]["count"] == 1
+    pairs = top_attention_pairs(np.random.default_rng(0).random((5, 120, 120)), 16, 2)
+    assert len(pairs) == 5 and len(pairs[0]["query_frames"]) == 2
+    sd = {k: np.full(shape, 0.5, np.float32)
+          for k, shape in torchvision_resnet_state_dict_spec(18)}
+    rn = resnet18(torch.float32, num_classes=1000)
+    rn.load_state_dict(weights.convert_variables(ck.import_resnet_torch(sd, (2, 2, 2, 2))))
+    out = io.StringIO()
+    ConsoleVisualizer(out).show({"fps": 1.0, "actions": {"a": 0.5}, "log": "x"})
+    assert "log: x" in out.getvalue()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = ElementsRecorder(tmp + "/e.npz")
+        rec.show({"fps": 1.0, "pose": np.zeros((30, 3))})
+        rec.flush()
+        assert len(np.load(tmp + "/e.npz", allow_pickle=True)["frames"]) == 1
+        os.makedirs(tmp + "/3.orbax")
+        needs = {
+            "GUIVisualizer": lambda: GUIVisualizer(backend="Agg"),
+            "MPLPosePrinter": lambda: MPLPosePrinter(),
+            "send_frame": lambda: stream.send_frame(None, np.zeros((4, 4, 3), np.uint8)),
+            "recv_frame": lambda: stream.recv_frame(None),
+            "record_source": lambda: stream.record_source(
+                make_source("synthetic", width=32, height=24), tmp + "/v.mp4", max_frames=1),
+            "render_cam_overlay": lambda: render_cam_overlay(np.zeros((8, 8, 3), np.uint8),
+                                                             np.zeros((1, 1))),
+            "plot_fsos": lambda: evals.plot_fsos({"FSOS-ACC": [1.0]}, tmp + "/p.png"),
+            "plot_confusion": lambda: evals.plot_confusion(np.eye(2), ["a", "b"], tmp + "/c.png"),
+            "render_episode": lambda: qualitative.render_episode(
+                np.zeros((1, 8, 90)), ["a"], np.zeros((8, 90)), "a", np.ones(1), 0.5, None,
+                tmp + "/q.png"),
+            "annotate": lambda: demo_tracking.annotate(
+                np.zeros((8, 8, 3), np.uint8), (np.zeros((30, 3)), np.zeros(4), 0.0, 0.0, 0.0),
+                np.eye(3), []),
+            "save_checkpoint orbax": lambda: ck.save_checkpoint(tmp, 0, {"w": np.ones(1)},
+                                                                backend="orbax"),
+            "load_checkpoint orbax": lambda: ck.load_checkpoint(tmp + "/3.orbax"),
+        }
+        for name, fn in needs.items():
+            try:
+                fn()
+            except ImportError:
+                continue
+            raise AssertionError(f"{name} ran without its library")
 
     # several devices: the ranks run_ranks starts refuse the same imports
     # (a sitecustomize on their path installs the finder) while they run a
